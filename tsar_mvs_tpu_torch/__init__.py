@@ -1,0 +1,19 @@
+"""tsar-mvs-tpu ported to PyTorch with hand-written CUDA kernels for Hopper.
+
+The JAX package ``tsar_mvs_tpu`` is the reference; this package keeps its
+module names so each counterpart is found by path. It imports torch and
+never jax. It shares the JAX package's jax-free modules by import
+(``tsar_mvs_tpu.config``, ``tsar_mvs_tpu.utils.*``,
+``tsar_mvs_tpu.models.weak_texture``, ``tsar_mvs_tpu.eval``).
+
+The two TPU kernels become CUDA C++ under ``csrc/``: the s-volume NCC cost
+(``ops/cuda_ncc.py``) and the s-volume build (``ops/cuda_warp.py``). They
+are compiled for ``sm_90a`` with nvcc on first use (``_build.py``).
+"""
+
+import torch
+
+# The RANSAC and geometry products must stay full float32 on the card:
+# TF32 keeps about three decimal digits.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,431 @@
+"""Checkerboard PatchMatch MVS engine on the s-volume sampler (port of the
+s-volume path of ``tsar_mvs_tpu.models.patchmatch``).
+
+Red/black propagation over 8 candidate banks plus per-pixel random plane
+refinement, evaluated with the bilateral-NCC multi-view cost, on a
+coarse-to-fine pyramid. Costs come from kernel B1 and volumes from kernel
+B2 on the card (their plain versions on the CPU). Everything runs in the
+checkerboard-packed (H, W/2) layout, so image sizes must be even at every
+level.
+
+Randomness comes from an explicit ``torch.Generator``; the draws are
+per pixel at every refine scale (the JAX package's tile-blocked draws
+only narrowed its TPU kernel's per-tile brackets, which kernel B1 does
+not walk).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch.ops import checkerboard as cb
+from tsar_mvs_tpu_torch.ops import ncc
+from tsar_mvs_tpu_torch.ops import svolume as sv
+
+
+class PlaneState(NamedTuple):
+    """Per-pixel plane hypotheses."""
+    normal: torch.Tensor     # (H, W, 3) unit normal, rebased ref frame
+    d: torch.Tensor          # (H, W) plane offset
+    cost: torch.Tensor       # (H, W) aggregated matching cost
+    ratio: torch.Tensor      # (H, W) best / second-best view cost
+    best_view: torch.Tensor  # (H, W) int32 best source view id
+
+    @property
+    def shape(self):
+        return tuple(self.d.shape)
+
+
+def depth_map(state: PlaneState, cams: geo.CameraSet) -> torch.Tensor:
+    """Per-pixel depth induced by the plane field."""
+    H, W = state.shape
+    xx, yy = geo.pixel_grid(H, W, state.d.device)
+    return geo.depth_from_plane(cams, state.normal, state.d, xx, yy)
+
+
+def refine_schedule(params: AlgorithmParams) -> list[tuple[float, float]]:
+    """(delta_disp, delta_normal) per refine scale: max_disparity *
+    refine_dz0_frac shrinking /10 down to refine_delta_z_min, normal radius
+    1.0 shrinking /4."""
+    out = []
+    dz = params.max_disparity * params.refine_dz0_frac
+    dn = params.refine_delta_n_init
+    while dz >= params.refine_delta_z_min:
+        out.append((dz, dn))
+        dz /= params.refine_delta_z_shrink
+        dn /= params.refine_delta_n_shrink
+    return out
+
+
+def iteration_schedule(params: AlgorithmParams,
+                       n_levels: int) -> tuple[int, ...]:
+    """Iterations per pyramid level, coarse to fine: the coarsest runs
+    `iterations`, lifted levels min(iterations, iterations_fine) (0 = all
+    levels run `iterations`)."""
+    fine = (min(params.iterations, params.iterations_fine)
+            if params.iterations_fine else params.iterations)
+    return (params.iterations,) + (fine,) * (n_levels - 1)
+
+
+def prop_bank_count(params: AlgorithmParams) -> int:
+    """Banks used by a propagation pass: the last `prop_banks` of
+    cb.BANKS (the near banks sit at the end). 0 selects all 8, as the JAX
+    package's `[-0:]` slice does; so does any count >= 8."""
+    n = params.prop_banks
+    return n if 0 < n < len(cb.BANKS) else len(cb.BANKS)
+
+
+def svolume_plane_counts(cams: geo.CameraSet, view_ids, height: int,
+                         width: int,
+                         params: AlgorithmParams) -> tuple[int, ...]:
+    """Per-view plane counts for one reference view (host side)."""
+    idx = list(view_ids)
+    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
+                                       params.svolume_margin)
+    return tuple(sv.plane_counts(
+        cams.A.cpu().numpy()[idx], cams.b.cpu().numpy()[idx], height, width,
+        s_lo, s_hi, step_px=params.svolume_step_px,
+        budget_bytes=params.svolume_budget_mb << 20))
+
+
+def svolume_plane_counts_shared(cams_list: Sequence[geo.CameraSet],
+                                view_ids_list: Sequence[Sequence[int]],
+                                height: int, width: int,
+                                params: AlgorithmParams
+                                ) -> tuple[int, ...]:
+    """Scene-shared plane counts: the per-source-slot max over all
+    reference views, with the memory budget re-applied on the maxima (plane
+    spacing sets accuracy, so these follow the JAX package exactly)."""
+    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
+                                       params.svolume_margin)
+    As = [c.A.cpu().numpy()[list(v)] for c, v in zip(cams_list,
+                                                     view_ids_list)]
+    bs = [c.b.cpu().numpy()[list(v)] for c, v in zip(cams_list,
+                                                     view_ids_list)]
+
+    def shared(step):
+        return np.stack([sv.plane_counts(A, b, height, width, s_lo, s_hi,
+                                         step_px=step)
+                         for A, b in zip(As, bs)]).max(axis=0)
+
+    step = params.svolume_step_px
+    out = shared(step)
+    budget = params.svolume_budget_mb << 20
+    while out.sum() * height * width * 2 > budget and step < 64.0:
+        step *= 1.5
+        out = shared(step)
+    return tuple(int(c) for c in out)
+
+
+def random_init_with(generator: torch.Generator, shape: tuple[int, int],
+                     cams: geo.CameraSet, rays: torch.Tensor, cost_fn,
+                     params: AlgorithmParams) -> PlaneState:
+    """Random planes: disparity uniform in [min_disparity, max_disparity],
+    normal uniform on the camera-facing hemisphere; costs from the same
+    cost function the iterations use."""
+    H, W = shape
+    dev = rays.device
+    u = torch.rand((H, W), generator=generator, device=dev)
+    disp = params.min_disparity + (params.max_disparity
+                                   - params.min_disparity) * u
+    depth = geo.disparity_depth(cams.f, cams.baseline, disp)
+    n = geo.normalize(torch.randn((H, W, 3), generator=generator,
+                                  device=dev))
+    n = geo.hemisphere_flip(n, geo.view_vectors(cams, H, W))
+    d = geo.plane_d_from_depth(n, rays, depth)
+    mv = cost_fn(n, d, None)
+    return PlaneState(normal=n, d=d, cost=mv.cost, ratio=mv.ratio,
+                      best_view=mv.best_view)
+
+
+class ParityCtx(NamedTuple):
+    """Packed-layout constants per parity: dense pixel coordinates, rays
+    and view vectors of each parity class, each (H, W/2[, 3])."""
+    coords: tuple
+    rays: tuple
+    vv: tuple
+
+
+def make_parity_ctx(stats_by_parity, cams: geo.CameraSet, height: int,
+                    width: int) -> ParityCtx:
+    vv = geo.view_vectors(cams, height, width)
+    return ParityCtx(
+        coords=tuple(cb.parity_coords(height, width, p, cams.device)
+                     for p in (0, 1)),
+        rays=tuple(stats_by_parity[p].rays for p in (0, 1)),
+        vv=tuple(cb.parity_compress_vec(vv, p) for p in (0, 1)))
+
+
+def _compress_state(state: PlaneState, parity: int) -> PlaneState:
+    return PlaneState(normal=cb.parity_compress_vec(state.normal, parity),
+                      d=cb.parity_compress(state.d, parity),
+                      cost=cb.parity_compress(state.cost, parity),
+                      ratio=cb.parity_compress(state.ratio, parity),
+                      best_view=cb.parity_compress(state.best_view, parity))
+
+
+def _expand_state(packed: PlaneState, state: PlaneState,
+                  parity: int) -> PlaneState:
+    return PlaneState(
+        normal=cb.parity_expand_vec(packed.normal, state.normal, parity),
+        d=cb.parity_expand(packed.d, state.d, parity),
+        cost=cb.parity_expand(packed.cost, state.cost, parity),
+        ratio=cb.parity_expand(packed.ratio, state.ratio, parity),
+        best_view=cb.parity_expand(packed.best_view, state.best_view,
+                                   parity))
+
+
+def _take(take: torch.Tensor, new: PlaneState,
+          cur: PlaneState) -> PlaneState:
+    return PlaneState(normal=torch.where(take[..., None], new.normal,
+                                         cur.normal),
+                      d=torch.where(take, new.d, cur.d),
+                      cost=torch.where(take, new.cost, cur.cost),
+                      ratio=torch.where(take, new.ratio, cur.ratio),
+                      best_view=torch.where(take, new.best_view,
+                                            cur.best_view))
+
+
+def _propagation_pass(state: PlaneState, parity: int, cost_fn,
+                      cams: geo.CameraSet, params: AlgorithmParams,
+                      pctx: ParityCtx) -> PlaneState:
+    """One checkerboard propagation half-pass: each pixel of `parity`
+    evaluates its bank candidates (one batched multi-view evaluation over
+    the bank axis) and keeps the cheapest in-range one."""
+    banks = cb.BANKS[len(cb.BANKS) - prop_bank_count(params):]
+    cands = cb.select_candidates(state.normal, state.d, state.cost, banks)
+    xx, yy = pctx.coords[parity]
+    cand_n = cb.parity_compress_vec(cands.normal, parity)
+    cand_d = cb.parity_compress(cands.d, parity)
+    cand_valid = cb.parity_compress(cands.valid, parity)
+    best = _compress_state(state, parity)
+
+    mv = cost_fn(cand_n, cand_d, parity)
+    depth_at_p = geo.depth_from_plane(cams, cand_n, cand_d, xx, yy)
+    in_borders = ((depth_at_p >= cams.depth_min)
+                  & (depth_at_p <= cams.depth_max))
+    cand_cost = torch.where(cand_valid & in_borders, mv.cost, float("inf"))
+    for k in range(cand_d.shape[0]):
+        take = cand_cost[k] < best.cost
+        best = _take(take, PlaneState(cand_n[k], cand_d[k], cand_cost[k],
+                                      mv.ratio[k], mv.best_view[k]), best)
+    return _expand_state(best, state, parity)
+
+
+def _refinement_pass(state: PlaneState, parity: int,
+                     generator: torch.Generator, cost_fn,
+                     cams: geo.CameraSet, params: AlgorithmParams,
+                     pctx: ParityCtx) -> PlaneState:
+    """One checkerboard refinement half-pass: a random search in
+    (disparity, normal) over the shrinking scales of refine_schedule, with
+    sequential accepts (each scale perturbs the previous scale's result)."""
+    sched = refine_schedule(params)
+    if not sched:
+        return state
+    xx, yy = pctx.coords[parity]
+    vv = pctx.vv[parity]
+    rays = pctx.rays[parity]
+    f, b = cams.f, cams.baseline
+    cur = _compress_state(state, parity)
+    shape = tuple(cur.d.shape)
+    dev = cur.d.device
+    for delta_z, delta_n in sched:
+        depth_now = geo.depth_from_plane(cams, cur.normal, cur.d, xx, yy)
+        disp_now = geo.disparity_depth(f, b, depth_now)
+        min_delta = -torch.clamp(params.min_disparity + disp_now,
+                                 max=delta_z)
+        max_delta = torch.clamp(params.max_disparity - disp_now,
+                                max=delta_z)
+        u = torch.rand(shape, generator=generator, device=dev)
+        dz = min_delta + u * (max_delta - min_delta)
+        disp_new = torch.clamp(disp_now + dz, params.min_disparity,
+                               params.max_disparity)
+        depth_new = geo.disparity_depth(f, b, disp_new)
+        dn = -delta_n + 2.0 * delta_n * torch.rand(
+            shape + (3,), generator=generator, device=dev)
+        n_new = geo.hemisphere_flip(geo.normalize(cur.normal + dn), vv)
+        d_new = geo.plane_d_from_depth(n_new, rays, depth_new)
+        mv = cost_fn(n_new, d_new, parity)
+        cur = _take(mv.cost < cur.cost,
+                    PlaneState(n_new, d_new, mv.cost, mv.ratio,
+                               mv.best_view), cur)
+    return _expand_state(cur, state, parity)
+
+
+def make_patchmatch_step(cost_fn, cams: geo.CameraSet,
+                         params: AlgorithmParams, pctx: ParityCtx):
+    """One iteration: black propagation, black refinement, red
+    propagation, red refinement. Returns step(state, generator)."""
+    def step(state: PlaneState, generator: torch.Generator) -> PlaneState:
+        for parity in (0, 1):
+            state = _propagation_pass(state, parity, cost_fn, cams, params,
+                                      pctx)
+            state = _refinement_pass(state, parity, generator, cost_fn,
+                                     cams, params, pctx)
+        return state
+    return step
+
+
+def make_svolume_cost_fn(stats: ncc.RefStats, cams: geo.CameraSet,
+                         height: int, width: int, vol: sv.SVolume,
+                         ids: torch.Tensor, params: AlgorithmParams):
+    """cost_fn(normal, d, parity) -> MultiviewCost on the s-volume, with
+    parity None the dense grid and 0/1 the packed classes; and the
+    ParityCtx of the packed passes."""
+    stats_p = {None: stats, 0: ncc.compress_stats(stats, 0),
+               1: ncc.compress_stats(stats, 1)}
+    pctx = make_parity_ctx(stats_p, cams, height, width)
+
+    def cost_fn(normal, d, parity=None):
+        return sv.multiview_cost_svolume(vol, ids, normal, d,
+                                         stats_p[parity], params,
+                                         parity=parity)
+    return cost_fn, pctx
+
+
+def run_patchmatch(generator: torch.Generator, imgs: torch.Tensor,
+                   view_ids: tuple[int, ...], cams: geo.CameraSet,
+                   params: AlgorithmParams,
+                   iterations: int | None = None,
+                   init_state: PlaneState | None = None,
+                   svol_planes: tuple[int, ...] | None = None
+                   ) -> PlaneState:
+    """Random (or lifted) init plus N checkerboard iterations on the
+    s-volume. imgs (V, H, W) f32 with index 0 the reference. A lifted
+    `init_state` keeps its stored (coarse-level) costs: re-evaluating them
+    through this level's volume displaces the lifted planes."""
+    H, W = imgs.shape[1:]
+    if not cb.parity_compressible(H, W):
+        raise ValueError(f"run_patchmatch needs even image sizes, got "
+                         f"{H}x{W}")
+    if svol_planes is None:
+        svol_planes = svolume_plane_counts(cams, view_ids, H, W, params)
+    stats = ncc.precompute_ref_stats(imgs[0], cams, params)
+    idx = torch.as_tensor(list(view_ids), dtype=torch.int64,
+                          device=imgs.device)
+    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
+                                       params.svolume_margin)
+    vol = sv.build_svolume(imgs[idx], cams.A[idx], cams.b[idx], s_lo, s_hi,
+                           svol_planes)
+    cost_fn, pctx = make_svolume_cost_fn(stats, cams, H, W, vol, idx,
+                                         params)
+    state = init_state
+    if state is None:
+        state = random_init_with(generator, (H, W), cams, stats.rays,
+                                 cost_fn, params)
+    step = make_patchmatch_step(cost_fn, cams, params, pctx)
+    iters = params.iterations if iterations is None else iterations
+    for _ in range(iters):
+        state = step(state, generator)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Coarse-to-fine pyramid
+# ---------------------------------------------------------------------------
+
+def downsample_2x(img: torch.Tensor) -> torch.Tensor:
+    """2x area-average downsample of the trailing (H, W) dims."""
+    H2 = (img.shape[-2] // 2) * 2
+    W2 = (img.shape[-1] // 2) * 2
+    img = img[..., :H2, :W2]
+    return 0.25 * (img[..., 0::2, 0::2] + img[..., 0::2, 1::2]
+                   + img[..., 1::2, 0::2] + img[..., 1::2, 1::2])
+
+
+def depth_map_with_f(state: PlaneState, cams_fine: geo.CameraSet,
+                     coarse_shape: tuple[int, int]) -> torch.Tensor:
+    """Depth of a coarse state with the coarse intrinsics (fx, cx, cy
+    halve with the image)."""
+    Hc, Wc = coarse_shape
+    xx, yy = geo.pixel_grid(Hc, Wc, state.d.device)
+    f_c = cams_fine.f * 0.5
+    cx_c = cams_fine.cx * 0.5
+    cy_c = cams_fine.cy * 0.5
+    denom = (state.normal[..., 0] * (xx - cx_c)
+             + state.normal[..., 1] * (yy - cy_c) * cams_fine.alpha
+             + state.normal[..., 2] * f_c)
+    return -state.d * f_c / denom
+
+
+def upsample_state_2x(state: PlaneState, cams_fine: geo.CameraSet,
+                      height: int, width: int) -> PlaneState:
+    """Lift a coarse plane field to the next finer scale: nearest-repeat
+    the normals and the induced depth (edge-padded to odd sizes), rebuild
+    d with the finer intrinsics, and carry cost, ratio and best view."""
+    Hc, Wc = state.shape
+    dev = state.d.device
+    iy = torch.clamp(torch.arange(height, device=dev) // 2, max=Hc - 1)
+    ix = torch.clamp(torch.arange(width, device=dev) // 2, max=Wc - 1)
+
+    def up(a):
+        return a.index_select(0, iy).index_select(1, ix)
+
+    normal = up(state.normal)
+    depth = up(depth_map_with_f(state, cams_fine, (Hc, Wc)))
+    rays = geo.pixel_rays(cams_fine, height, width)
+    return PlaneState(normal=normal,
+                      d=geo.plane_d_from_depth(normal, rays, depth),
+                      cost=up(state.cost), ratio=up(state.ratio),
+                      best_view=up(state.best_view))
+
+
+def run_patchmatch_pyramid(generator: torch.Generator, imgs: torch.Tensor,
+                           view_ids: tuple[int, ...], P_list,
+                           params: AlgorithmParams,
+                           levels: tuple[int, ...] = (4, 2, 1),
+                           iterations_per_level: tuple[int, ...] | None
+                           = None,
+                           depth_min: float | None = None,
+                           depth_max: float | None = None,
+                           svol_planes_per_level: Sequence[
+                               tuple[int, ...] | None] | None = None
+                           ) -> PlaneState:
+    """Coarse-to-fine PatchMatch over `levels` (downsample factors, coarse
+    to fine, the last 1). imgs (V, H, W) f32 on the device; P_list the raw
+    projections in pipeline order. Lifted levels narrow the first refine
+    scale (refine_dz0_frac_fine), use prop_banks_fine banks and keep
+    their coarse costs."""
+    if levels[-1] != 1:
+        raise ValueError("the finest pyramid level must be 1")
+    if iterations_per_level is None:
+        iterations_per_level = iteration_schedule(params, len(levels))
+    dmin = params.depth_min if depth_min is None else depth_min
+    dmax = params.depth_max if depth_max is None else depth_max
+    pyr = {1: imgs}
+    fac, cur = 1, imgs
+    while fac < max(levels):
+        cur = downsample_2x(cur)
+        fac *= 2
+        pyr[fac] = cur
+
+    state = None
+    for li, s in enumerate(levels):
+        cams_s = geo.build_camera_set(P_list,
+                                      cam_scale=float(s) * params.cam_scale,
+                                      depth_min=dmin, depth_max=dmax,
+                                      device=imgs.device)
+        params_s = dataclasses.replace(
+            params,
+            refine_dz0_frac=(params.refine_dz0_frac if li == 0
+                             else min(params.refine_dz0_frac,
+                                      params.refine_dz0_frac_fine)),
+            prop_banks=(params.prop_banks if li == 0
+                        else min(params.prop_banks,
+                                 params.prop_banks_fine)),
+        ).with_depth_range(dmin, dmax, float(cams_s.f))
+        imgs_s = pyr[s]
+        if state is not None:
+            state = upsample_state_2x(state, cams_s, *imgs_s.shape[1:])
+        planes = (svol_planes_per_level[li]
+                  if svol_planes_per_level is not None else None)
+        state = run_patchmatch(generator, imgs_s, view_ids, cams_s,
+                               params_s, iterations=iterations_per_level[li],
+                               init_state=state, svol_planes=planes)
+    return state

@@ -1,0 +1,325 @@
+"""Scene and view pipeline with the reference's on-disk contract (port of
+``tsar_mvs_tpu.pipeline``, main path: no APD prior).
+
+    <scene>/images/<name>.png|.pfm       input views
+    <scene>/cams/<name>_cam.txt          cameras + depth range
+    <scene>/pair.txt                     ranked source views per reference
+    <scene>/results/<name>/TSAR_disp.dmb      metric depth
+    <scene>/results/<name>/TSAR_normals.dmb   world-frame normals
+    <scene>/results/<name>/TSAR_model.ply     per-view point cloud
+    <scene>/results/<name>/TSAR_slic*.{png,dmb,txt}  superpixel artifacts
+    <scene>/results/<name>/TSAR_results.txt   runtime log
+
+Per view: weak-texture detection and SLIC on the host, the coarse-to-fine
+PatchMatch pyramid on the device, TSAR refinement, artifacts.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu.models import weak_texture as wt
+from tsar_mvs_tpu.utils import dmb, ply, scene_io
+from tsar_mvs_tpu.utils.pfm import read_pfm
+from tsar_mvs_tpu.utils.synthetic import read_png_gray
+from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch.models import patchmatch as pm
+from tsar_mvs_tpu_torch.models import tsar
+from tsar_mvs_tpu_torch.ops import slic as slic_mod
+
+
+@dataclass
+class Scene:
+    root: Path
+    names: list[str]               # view names in id order
+    images: np.ndarray             # (V, H, W) float32 grayscale
+    P: np.ndarray                  # (V, 3, 4) world-frame projections
+    depth_min: float
+    depth_max: float
+    pair: scene_io.PairFile
+    # Scene-shared plane counts per (level scale, n_src), filled by
+    # scene_plane_counts.
+    _svol_counts_cache: dict | None = None
+
+
+def load_scene(root: str | Path) -> Scene:
+    """Load images, `cams/<name>_cam.txt` cameras (view 0's also gives the
+    depth range) and `pair.txt` when present."""
+    root = Path(root)
+    img_dir = root / "images"
+    exts = (".png", ".pfm", ".jpg", ".jpeg", ".JPG")
+    paths = {}
+    for p in sorted(img_dir.iterdir()):
+        if p.suffix in exts and p.stem not in paths:
+            paths[p.stem] = p
+    names = sorted(paths)
+    images = [_read_gray(paths[n]) for n in names]
+    cams = [scene_io.read_cam_file(root / "cams" / f"{name}_cam.txt")
+            for name in names]
+    pair_path = root / "pair.txt"
+    pair = (scene_io.read_pair_file(pair_path) if pair_path.exists()
+            else scene_io.PairFile())
+    return Scene(root=root, names=names, images=np.stack(images),
+                 P=np.stack([c.P for c in cams]),
+                 depth_min=float(cams[0].depth_min),
+                 depth_max=float(cams[0].depth_max), pair=pair)
+
+
+def _read_gray(path: Path) -> np.ndarray:
+    """Grayscale float32 image from .pfm/.png/.jpg."""
+    if path.suffix == ".pfm":
+        img = read_pfm(path)
+        if img.ndim == 3:
+            img = img.mean(axis=-1)
+        return np.asarray(img, np.float32)
+    if path.suffix == ".png":
+        return np.asarray(read_png_gray(path), np.float32)
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("L"), np.float32)
+
+
+def view_image_order(scene: Scene, ref_idx: int, max_views: int,
+                     min_angle: float = 5.0, max_angle: float = 45.0
+                     ) -> tuple[list[int], tuple[int, ...]]:
+    """[ref] + source views from pair.txt, or from the angle-based
+    selection without one. Returns (image ids in pipeline order, source
+    positions 1..S)."""
+    if scene.pair.neighbors:
+        src = scene.pair.source_ids(ref_idx, max_views)
+    else:
+        from tsar_mvs_tpu_torch.models.view_selection import \
+            select_views_angle
+        src = select_views_angle(list(scene.P), ref_idx, scene.depth_min,
+                                 scene.depth_max, min_angle=min_angle,
+                                 max_angle=max_angle, max_views=max_views)
+        if not src:
+            src = [i for i in range(len(scene.names))
+                   if i != ref_idx][:max_views]
+    order = [ref_idx] + list(src)
+    return order, tuple(range(1, len(order)))
+
+
+def default_params_for_scene(scene: Scene,
+                             params: AlgorithmParams | None = None
+                             ) -> AlgorithmParams:
+    params = params or AlgorithmParams()
+    K, _, _ = geo.decompose_projection(scene.P[0])
+    return params.with_depth_range(scene.depth_min, scene.depth_max,
+                                   K[0, 0] / params.cam_scale)
+
+
+def pyramid_levels_for(height: int) -> tuple[int, ...]:
+    """Coarse-to-fine downsample factors of the PatchMatch pyramid."""
+    return (4, 2, 1) if height >= 1024 else (2, 1)
+
+
+def scene_plane_counts(scene: Scene, params: AlgorithmParams,
+                       levels: tuple[int, ...], n_src: int
+                       ) -> list[tuple[int, ...]]:
+    """Scene-shared s-volume plane counts per pyramid level (max over all
+    reference views with n_src sources, budget re-applied), cached on the
+    Scene."""
+    H, W = scene.images.shape[1:]
+    if scene._svol_counts_cache is None:
+        scene._svol_counts_cache = {}
+    dims = {1: (H, W)}
+    h, w, fac = H, W, 1
+    while fac < max(levels):
+        h, w, fac = h // 2, w // 2, fac * 2
+        dims[fac] = (h, w)
+    out = []
+    for s in levels:
+        key = (s, n_src)
+        if key not in scene._svol_counts_cache:
+            cams_list, vids_list = [], []
+            for ref_idx in range(len(scene.names)):
+                order, view_ids = view_image_order(
+                    scene, ref_idx, params.max_views,
+                    min_angle=params.min_angle, max_angle=params.max_angle)
+                if len(view_ids) != n_src:
+                    continue
+                cams_list.append(geo.build_camera_set(
+                    [scene.P[i] for i in order],
+                    cam_scale=float(s) * params.cam_scale,
+                    depth_min=scene.depth_min, depth_max=scene.depth_max))
+                vids_list.append(view_ids)
+            scene._svol_counts_cache[key] = pm.svolume_plane_counts_shared(
+                cams_list, vids_list, *dims[s], params)
+        out.append(scene._svol_counts_cache[key])
+    return out
+
+
+def run_slic_stage(gray: np.ndarray, params: AlgorithmParams,
+                   device: torch.device | str = "cpu"
+                   ) -> tuple[np.ndarray, slic_mod.SlicResult]:
+    """SLIC on the quarter-scale reference image. Returns (full-resolution
+    nearest-upsampled labels, quarter-scale SlicResult)."""
+    g = torch.as_tensor(np.asarray(gray, np.float32), device=device)
+    q = pm.downsample_2x(pm.downsample_2x(g))
+    res = slic_mod.slic(slic_mod.gray_to_feature(q),
+                        spixel_size=params.slic_spixel_size,
+                        coh_weight=params.slic_coh_weight,
+                        n_iters=params.slic_iters)
+    lab = res.labels.cpu().numpy()
+    H, W = gray.shape
+    lab_full = np.repeat(np.repeat(lab, 4, axis=0), 4, axis=1)[:H, :W]
+    if lab_full.shape != (H, W):
+        lab_full = np.pad(lab_full, ((0, H - lab_full.shape[0]),
+                                     (0, W - lab_full.shape[1])),
+                          mode="edge")
+    return lab_full, res
+
+
+def write_slic_graph(path: Path, adjacency: dict, sizes: dict,
+                     borders: dict) -> None:
+    """One line per superpixel: `id size n_neighbors nb:borderlen ...`,
+    after a first line with the superpixel count."""
+    with Path(path).open("w") as fh:
+        fh.write(f"{len(sizes)}\n")
+        for label in sorted(sizes):
+            nbs = sorted(adjacency.get(label, ()))
+            parts = [f"{label}", f"{sizes[label]}", f"{len(nbs)}"]
+            for nb in nbs:
+                parts.append(f"{nb}:{borders.get((min(label, nb), max(label, nb)), 0)}")
+            fh.write(" ".join(parts) + "\n")
+
+
+def read_slic_graph(path: Path) -> tuple[dict, dict, dict]:
+    """Inverse of write_slic_graph."""
+    adjacency: dict[int, set[int]] = {}
+    sizes: dict[int, int] = {}
+    borders: dict[tuple[int, int], int] = {}
+    for ln in Path(path).read_text().splitlines()[1:]:
+        toks = ln.split()
+        label, size, n_nb = int(toks[0]), int(toks[1]), int(toks[2])
+        sizes[label] = size
+        adjacency[label] = set()
+        for t in toks[3:3 + n_nb]:
+            nb, bl = (int(v) for v in t.split(":"))
+            adjacency[label].add(nb)
+            borders[(min(label, nb), max(label, nb))] = bl
+    return adjacency, sizes, borders
+
+
+def process_view(scene: Scene, ref_idx: int,
+                 params: AlgorithmParams | None = None,
+                 generator: torch.Generator | None = None,
+                 write_ply: bool = True,
+                 device: torch.device | str = "cpu",
+                 timer=None) -> tsar.TsarResult:
+    """Full per-view run: weak texture -> SLIC -> PatchMatch pyramid ->
+    TSAR refinement -> artifacts. `generator` (a torch.Generator on
+    `device`) defaults to one seeded 0. `timer(name)`, when given, is
+    called at each stage boundary with the name of the stage that just
+    ended (the stage names of bench.py)."""
+    t0 = time.time()
+    device = torch.device(device)
+    mark = timer or (lambda name: None)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    params = default_params_for_scene(scene, params)
+    order, view_ids = view_image_order(scene, ref_idx, params.max_views,
+                                       min_angle=params.min_angle,
+                                       max_angle=params.max_angle)
+    cams = geo.build_camera_set([scene.P[i] for i in order],
+                                cam_scale=params.cam_scale,
+                                depth_min=scene.depth_min,
+                                depth_max=scene.depth_max, device=device)
+    name = scene.names[ref_idx]
+    gray = scene.images[ref_idx]
+    mark("setup")
+    weak = wt.detect_weak_texture(gray, params)
+    mark("weak_texture")
+    slic_labels, slic_res = run_slic_stage(gray, params, device)
+    slic_adj, slic_sizes, slic_borders = \
+        slic_mod.superpixel_graph_host(slic_res.labels.cpu().numpy())
+    mark("slic")
+
+    imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
+                           device=device)
+    levels = pyramid_levels_for(imgs.shape[1])
+    state = pm.run_patchmatch_pyramid(
+        generator, imgs, view_ids, [scene.P[i] for i in order], params,
+        levels=levels,
+        iterations_per_level=pm.iteration_schedule(params, len(levels)),
+        depth_min=scene.depth_min, depth_max=scene.depth_max,
+        svol_planes_per_level=scene_plane_counts(scene, params, levels,
+                                                 len(view_ids)))
+    mark("patchmatch")
+    result = tsar.tsar_refine(imgs, cams, view_ids, params, state, weak,
+                              generator, timer=mark)
+
+    out_dir = scene.root / "results" / name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dmb.write_dmb(out_dir / "TSAR_disp.dmb", result.depth)
+    dmb.write_dmb(out_dir / "TSAR_normals.dmb", result.normal_world)
+    from tsar_mvs_tpu.utils import display
+    display.write_png(out_dir / "TSAR_slic.png",
+                      display.slic_boundaries_for_display(
+                          slic_res.labels.cpu().numpy(),
+                          pm.downsample_2x(pm.downsample_2x(
+                              torch.as_tensor(gray))).numpy()))
+    dmb.write_dmb(out_dir / "TSAR_slic_labels.dmb",
+                  slic_labels.astype(np.float32))
+    write_slic_graph(out_dir / "TSAR_slic_graph.txt", slic_adj, slic_sizes,
+                     slic_borders)
+    if write_ply:
+        cams_world = geo.build_camera_set([scene.P[i] for i in order],
+                                          cam_scale=params.cam_scale,
+                                          rebase=False)
+        write_view_ply(out_dir / "TSAR_model.ply", result, gray, cams_world)
+    runtime = time.time() - t0
+    with (out_dir / "TSAR_results.txt").open("a") as fh:
+        fh.write(f"Total runtime: {runtime:.3f} sec "
+                 f"( {runtime / 60.0:.3f} min)\n")
+        fh.write(f"SLIC: {len(slic_sizes)} superpixels, "
+                 f"{sum(len(v) for v in slic_adj.values()) // 2} "
+                 f"adjacencies, {len(slic_borders)} shared borders\n")
+    mark("artifacts")
+    return result
+
+
+def write_view_ply(path: Path, result: tsar.TsarResult, gray: np.ndarray,
+                   cams_world: geo.CameraSet) -> None:
+    """Per-view point cloud in the world frame: every pixel emits a
+    vertex; invalid depths become the origin."""
+    H, W = result.depth.shape
+    xx, yy = np.meshgrid(np.arange(W, dtype=np.float32),
+                         np.arange(H, dtype=np.float32))
+    X = geo.backproject(cams_world, 0, torch.as_tensor(xx),
+                        torch.as_tensor(yy),
+                        torch.as_tensor(result.depth)).numpy()
+    bad = ~np.isfinite(X).all(axis=-1) | (result.depth <= 0)
+    X = np.where(bad[..., None], 0.0, X)
+    colors = np.clip(gray, 0, 255).astype(np.uint8).reshape(-1)
+    ply.write_ply(path, X.reshape(-1, 3),
+                  result.normal_world.reshape(-1, 3), colors)
+
+
+def process_scene(scene_root: str | Path,
+                  params: AlgorithmParams | None = None, seed: int = 0,
+                  write_ply: bool = True,
+                  resume: bool = False,
+                  device: torch.device | str = "cpu"
+                  ) -> list[tsar.TsarResult | None]:
+    """Every reference view of a scene, one after another. With `resume`,
+    views whose TSAR_disp.dmb exists are skipped (None in the result).
+    View i draws from a generator seeded seed * 1000003 + i."""
+    scene = load_scene(scene_root)
+    results = []
+    for ref_idx, name in enumerate(scene.names):
+        if resume and (scene.root / "results" / name
+                       / "TSAR_disp.dmb").exists():
+            results.append(None)
+            continue
+        gen = torch.Generator(device=torch.device(device)).manual_seed(
+            seed * 1000003 + ref_idx)
+        results.append(process_view(scene, ref_idx, params, gen,
+                                    write_ply=write_ply, device=device))
+    return results
