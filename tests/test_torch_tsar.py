@@ -231,3 +231,28 @@ def test_fill_fake_depth_finalize_border_match(setup):
     tdep, tnw = tsar.finalize_stage(s["tc"], tst)
     np.testing.assert_allclose(tdep.numpy(), np.asarray(jdep), atol=1e-4)
     np.testing.assert_allclose(tnw.numpy(), np.asarray(jnw), atol=1e-4)
+
+
+def test_prior_drift_revert_matches(setup):
+    """prior_drift_revert on the noisy state against GT prior planes: the
+    same pixels revert (>= 99.9%; a disparity drift at the threshold can
+    flip) and the planes agree to atol 1e-5 where both decide alike."""
+    s = setup
+    gt = np.where(np.isfinite(s["scene"].depth[0]), s["scene"].depth[0],
+                  s["scene"].depth_max)
+    n = s["scene"].normal_cam[0].astype(np.float32)
+    rays = np.asarray(jgeo.pixel_rays(s["jc"], s["H"], s["W"]))
+    d = (-gt * np.sum(n * rays, -1)).astype(np.float32)
+    jout = jtsar.prior_drift_revert(s["jc"], s["jstate"], jnp.asarray(n),
+                                    jnp.asarray(d), drift_thr=6.0)
+    tout = tsar.prior_drift_revert(s["tc"], s["tstate"], torch.as_tensor(n),
+                                   torch.as_tensor(d), drift_thr=6.0)
+    jrev = np.asarray(jout.d) != np.asarray(s["jstate"].d)
+    trev = tout.d.numpy() != s["tstate"].d.numpy()
+    assert 0.02 < trev.mean() < 0.2, trev.mean()
+    assert (trev == jrev).mean() >= 0.999
+    same = trev == jrev
+    np.testing.assert_allclose(tout.d.numpy()[same], np.asarray(jout.d)[same],
+                               atol=1e-5)
+    np.testing.assert_allclose(tout.normal.numpy()[same],
+                               np.asarray(jout.normal)[same], atol=1e-5)

@@ -243,5 +243,14 @@ def backproject(cams: CameraSet, view: int, xx: torch.Tensor,
     return matvec3(cams.M_inv[view], p)
 
 
+def project(cams: CameraSet, view: int, X: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project 3-D points (..., 3) into a view: ((..., 2) pixels, (...)
+    projective depth w = P3·X~)."""
+    Pv = cams.P[view]
+    q = matvec3(Pv[:, :3], X) + Pv[:, 3]
+    return q[..., :2] / q[..., 2:3], q[..., 2]
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v * torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + eps)

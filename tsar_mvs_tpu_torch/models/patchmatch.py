@@ -144,6 +144,23 @@ def random_init_with(generator: torch.Generator, shape: tuple[int, int],
                       best_view=mv.best_view)
 
 
+def state_from_prior(depth: torch.Tensor, normal: torch.Tensor,
+                     cams: geo.CameraSet) -> PlaneState:
+    """Lift a prior depth/normal map (H, W), (H, W, 3) into planes: rotate
+    world-frame normals into the rebased reference frame with R_orig[0]
+    and set d through the pixel rays. Every pixel gets cost 1.0, ratio 0
+    and best view -1; the cost is not re-evaluated."""
+    H, W = depth.shape
+    normal = geo.matvec3(cams.R_orig[0], normal)
+    d = geo.plane_d_from_depth(normal, geo.pixel_rays(cams, H, W), depth)
+    return PlaneState(
+        normal=normal, d=d,
+        cost=torch.full((H, W), 1.0, device=depth.device),
+        ratio=torch.zeros((H, W), device=depth.device),
+        best_view=torch.full((H, W), -1, dtype=torch.int32,
+                             device=depth.device))
+
+
 class ParityCtx(NamedTuple):
     """Packed-layout constants per parity: dense pixel coordinates, rays
     and view vectors of each parity class, each (H, W/2[, 3])."""

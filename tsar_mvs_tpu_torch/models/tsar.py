@@ -187,6 +187,20 @@ def wmf_final_stage(ref_img: torch.Tensor, cams: geo.CameraSet,
     return state._replace(normal=normal, d=d), disp, reliable
 
 
+def prior_drift_revert(cams: geo.CameraSet, state: PlaneState,
+                       prior_normal: torch.Tensor, prior_d: torch.Tensor,
+                       drift_thr: float = 6.0) -> PlaneState:
+    """Pixels whose refined disparity drifted more than `drift_thr` from
+    the prior's take the prior plane back. Opt-in: no pipeline calls it
+    (the reference's clause for it is never invoked either)."""
+    revert = torch.abs(_disparity_of(cams, state.normal, state.d)
+                       - _disparity_of(cams, prior_normal, prior_d)) \
+        > drift_thr
+    return state._replace(
+        normal=torch.where(revert[..., None], prior_normal, state.normal),
+        d=torch.where(revert, prior_d, state.d))
+
+
 def finalize_stage(cams: geo.CameraSet, state: PlaneState):
     """World-frame normals and metric depth (0 where cost is MAXCOST)."""
     H, W = state.d.shape
@@ -199,19 +213,25 @@ def finalize_stage(cams: geo.CameraSet, state: PlaneState):
 def tsar_refine(imgs: torch.Tensor, cams: geo.CameraSet,
                 view_ids: Sequence[int], params: AlgorithmParams,
                 state: PlaneState, weak: WeakTexture,
-                generator: torch.Generator, timer=None) -> TsarResult:
-    """Full TSAR refinement of a PatchMatch plane field. imgs (V, H, W) f32
-    on the device. `timer(name)`, when given, is called at each stage
-    boundary with the name of the stage that just ended."""
+                generator: torch.Generator, timer=None,
+                reliable_seed: np.ndarray | None = None) -> TsarResult:
+    """Full TSAR refinement of a PatchMatch (or lifted prior) plane field.
+    imgs (V, H, W) f32 on the device. `reliable_seed` (H, W) bool seeds the
+    reliability mask the WMF marking starts from (all true without one).
+    `timer(name)`, when given, is called at each stage boundary with the
+    name of the stage that just ended."""
     mark = timer or (lambda name: None)
     dev = imgs.device
     view_ids = tuple(int(v) for v in view_ids)
     H, W = imgs.shape[1:]
     confid, _, disp = confidence_stage(imgs, view_ids, cams, state, params)
     mark("confidence")
-    reliable = wmf_stage(imgs[0], cams, state, disp,
-                         torch.ones((H, W), dtype=torch.bool, device=dev),
-                         params, iters=params.wmf_iters)
+    reliable = (torch.ones((H, W), dtype=torch.bool, device=dev)
+                if reliable_seed is None
+                else torch.as_tensor(np.asarray(reliable_seed, bool),
+                                     device=dev))
+    reliable = wmf_stage(imgs[0], cams, state, disp, reliable, params,
+                         iters=params.wmf_iters)
     mark("wmf_mark")
     region_planes = fit_region_planes(generator, weak, disp,
                                       reliable.cpu().numpy(), cams, params)

@@ -1,21 +1,28 @@
 """Scene and view pipeline with the reference's on-disk contract (port of
-``tsar_mvs_tpu.pipeline``, main path: no APD prior).
+``tsar_mvs_tpu.pipeline``).
 
     <scene>/images/<name>.png|.pfm       input views
     <scene>/cams/<name>_cam.txt          cameras + depth range
     <scene>/pair.txt                     ranked source views per reference
+    <scene>/APD/<name>/depths_geom.dmb   optional prior depth (APD contract)
+    <scene>/APD/<name>/normals.dmb       optional prior normals
+    <scene>/APD/<name>/weak.png          optional reliability seed
     <scene>/results/<name>/TSAR_disp.dmb      metric depth
     <scene>/results/<name>/TSAR_normals.dmb   world-frame normals
     <scene>/results/<name>/TSAR_model.ply     per-view point cloud
     <scene>/results/<name>/TSAR_slic*.{png,dmb,txt}  superpixel artifacts
     <scene>/results/<name>/TSAR_results.txt   runtime log
+    <scene>/results/TSAR_fused.ply            fused scene cloud
 
-Per view: weak-texture detection and SLIC on the host, the coarse-to-fine
-PatchMatch pyramid on the device, TSAR refinement, artifacts.
+Per view: weak-texture detection and SLIC on the host, then either the
+lifted APD prior (PatchMatch only when asked for) or the coarse-to-fine
+PatchMatch pyramid on the device, TSAR refinement, artifacts. A scene is
+the views one after another, then fusion.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -23,15 +30,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu.config import AlgorithmParams, FusionParams
 from tsar_mvs_tpu.models import weak_texture as wt
-from tsar_mvs_tpu.utils import dmb, ply, scene_io
+from tsar_mvs_tpu.utils import display, dmb, ply, scene_io
 from tsar_mvs_tpu.utils.pfm import read_pfm
 from tsar_mvs_tpu.utils.synthetic import read_png_gray
 from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch.models import fusion as fusion_mod
 from tsar_mvs_tpu_torch.models import patchmatch as pm
 from tsar_mvs_tpu_torch.models import tsar
 from tsar_mvs_tpu_torch.ops import slic as slic_mod
+
+# View image formats load_scene reads (and the CLI routes to gipuma).
+IMAGE_SUFFIXES = (".png", ".pfm", ".jpg", ".jpeg", ".JPG")
 
 
 @dataclass
@@ -43,32 +54,58 @@ class Scene:
     depth_min: float
     depth_max: float
     pair: scene_io.PairFile
+    images_dir: Path | None = None
     # Scene-shared plane counts per (level scale, n_src), filled by
     # scene_plane_counts.
     _svol_counts_cache: dict | None = None
 
 
-def load_scene(root: str | Path) -> Scene:
-    """Load images, `cams/<name>_cam.txt` cameras (view 0's also gives the
-    depth range) and `pair.txt` when present."""
+def load_scene(root: str | Path, images_folder: str | Path | None = None,
+               p_folder: str | Path | None = None,
+               calib_file: str | Path | None = None,
+               depth_min: float | None = None,
+               depth_max: float | None = None) -> Scene:
+    """Load a scene with the reference's camera-source precedence: KITTI
+    `calib_file` (two views) > Strecha `p_folder` (`<name>.P` or
+    `<name>.png.P`) > `cams/<name>_cam.txt` (which also gives the depth
+    range, from view 0, unless `depth_min`/`depth_max` are given).
+    `images_folder` overrides where the view images load from; without a
+    depth range from either source it is (-1, -1)."""
     root = Path(root)
-    img_dir = root / "images"
-    exts = (".png", ".pfm", ".jpg", ".jpeg", ".JPG")
+    img_dir = Path(images_folder) if images_folder else root / "images"
     paths = {}
     for p in sorted(img_dir.iterdir()):
-        if p.suffix in exts and p.stem not in paths:
+        if p.suffix in IMAGE_SUFFIXES and p.stem not in paths:
             paths[p.stem] = p
     names = sorted(paths)
     images = [_read_gray(paths[n]) for n in names]
-    cams = [scene_io.read_cam_file(root / "cams" / f"{name}_cam.txt")
-            for name in names]
+    if calib_file is not None:
+        if len(names) != 2:
+            raise ValueError("-calib_file is a two-view (KITTI) contract; "
+                             f"got {len(names)} images")
+        P_list = list(scene_io.read_kitti_calib(calib_file))
+    elif p_folder is not None:
+        P_list = []
+        for name in names:
+            p_path = Path(p_folder) / f"{name}.P"
+            if not p_path.exists():
+                p_path = Path(p_folder) / f"{name}.png.P"
+            P_list.append(scene_io.read_p_file(p_path))
+    else:
+        P_list = []
+        for name in names:
+            cam = scene_io.read_cam_file(root / "cams" / f"{name}_cam.txt")
+            P_list.append(cam.P)
+            if depth_min is None:
+                depth_min, depth_max = cam.depth_min, cam.depth_max
+    if depth_min is None:
+        depth_min, depth_max = -1.0, -1.0
     pair_path = root / "pair.txt"
     pair = (scene_io.read_pair_file(pair_path) if pair_path.exists()
             else scene_io.PairFile())
     return Scene(root=root, names=names, images=np.stack(images),
-                 P=np.stack([c.P for c in cams]),
-                 depth_min=float(cams[0].depth_min),
-                 depth_max=float(cams[0].depth_max), pair=pair)
+                 P=np.stack(P_list), depth_min=float(depth_min),
+                 depth_max=float(depth_max), pair=pair, images_dir=img_dir)
 
 
 def _read_gray(path: Path) -> np.ndarray:
@@ -210,14 +247,25 @@ def read_slic_graph(path: Path) -> tuple[dict, dict, dict]:
 def process_view(scene: Scene, ref_idx: int,
                  params: AlgorithmParams | None = None,
                  generator: torch.Generator | None = None,
+                 out_dir: str | Path | None = None,
+                 pm_iterations: int | None = None,
                  write_ply: bool = True,
+                 write_vis: bool = False,
                  device: torch.device | str = "cpu",
                  timer=None) -> tsar.TsarResult:
-    """Full per-view run: weak texture -> SLIC -> PatchMatch pyramid ->
-    TSAR refinement -> artifacts. `generator` (a torch.Generator on
-    `device`) defaults to one seeded 0. `timer(name)`, when given, is
-    called at each stage boundary with the name of the stage that just
-    ended (the stage names of bench.py)."""
+    """Full per-view run: weak texture -> SLIC -> [APD prior | PatchMatch
+    pyramid] -> TSAR refinement -> artifacts in `out_dir` (default
+    results/<name>).
+
+    With `APD/<name>/depths_geom.dmb` present the prior is lifted into
+    planes and `weak.png > 0` seeds the reliability mask; PatchMatch then
+    runs only for `pm_iterations` > 0 (default 0), at full resolution from
+    the lifted state. Otherwise `pm_iterations` overrides the pyramid's
+    iterations. `write_vis` adds the normal, disparity and confidence PNGs
+    and the parameter dump. `generator` (a torch.Generator on `device`)
+    defaults to one seeded 0. `timer(name)`, when given, is called at
+    each stage boundary with the name of the stage that just ended (the
+    stage names of bench.py)."""
     t0 = time.time()
     device = torch.device(device)
     mark = timer or (lambda name: None)
@@ -243,23 +291,41 @@ def process_view(scene: Scene, ref_idx: int,
 
     imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
                            device=device)
-    levels = pyramid_levels_for(imgs.shape[1])
-    state = pm.run_patchmatch_pyramid(
-        generator, imgs, view_ids, [scene.P[i] for i in order], params,
-        levels=levels,
-        iterations_per_level=pm.iteration_schedule(params, len(levels)),
-        depth_min=scene.depth_min, depth_max=scene.depth_max,
-        svol_planes_per_level=scene_plane_counts(scene, params, levels,
-                                                 len(view_ids)))
+    prior_dir = scene.root / "APD" / name
+    reliable_seed = None
+    if (prior_dir / "depths_geom.dmb").exists():
+        def load(fname):
+            return torch.tensor(dmb.read_dmb(prior_dir / fname),
+                                dtype=torch.float32, device=device)
+        state = pm.state_from_prior(load("depths_geom.dmb"),
+                                    load("normals.dmb"), cams)
+        if (prior_dir / "weak.png").exists():
+            reliable_seed = read_png_gray(prior_dir / "weak.png") > 0
+        if (pm_iterations or 0) > 0:
+            state = pm.run_patchmatch(generator, imgs, view_ids, cams, params,
+                                      iterations=pm_iterations,
+                                      init_state=state)
+    else:
+        iters = params.iterations if pm_iterations is None else pm_iterations
+        levels = pyramid_levels_for(imgs.shape[1])
+        state = pm.run_patchmatch_pyramid(
+            generator, imgs, view_ids, [scene.P[i] for i in order], params,
+            levels=levels,
+            iterations_per_level=pm.iteration_schedule(
+                dataclasses.replace(params, iterations=iters), len(levels)),
+            depth_min=scene.depth_min, depth_max=scene.depth_max,
+            svol_planes_per_level=scene_plane_counts(scene, params, levels,
+                                                     len(view_ids)))
     mark("patchmatch")
     result = tsar.tsar_refine(imgs, cams, view_ids, params, state, weak,
-                              generator, timer=mark)
+                              generator, timer=mark,
+                              reliable_seed=reliable_seed)
 
-    out_dir = scene.root / "results" / name
+    out_dir = Path(out_dir) if out_dir is not None \
+        else scene.root / "results" / name
     out_dir.mkdir(parents=True, exist_ok=True)
     dmb.write_dmb(out_dir / "TSAR_disp.dmb", result.depth)
     dmb.write_dmb(out_dir / "TSAR_normals.dmb", result.normal_world)
-    from tsar_mvs_tpu.utils import display
     display.write_png(out_dir / "TSAR_slic.png",
                       display.slic_boundaries_for_display(
                           slic_res.labels.cpu().numpy(),
@@ -274,6 +340,16 @@ def process_view(scene: Scene, ref_idx: int,
                                           cam_scale=params.cam_scale,
                                           rebase=False)
         write_view_ply(out_dir / "TSAR_model.ply", result, gray, cams_world)
+    if write_vis:
+        display.write_png(out_dir / "TSAR_normals.png",
+                          display.add_sphere_legend(
+                              display.normals_for_display(
+                                  result.normal_world)))
+        display.write_png(out_dir / "TSAR_disp.png",
+                          display.disparity_for_display(result.depth))
+        display.write_png(out_dir / "TSAR_confidence.png",
+                          display.confidence_for_display(result.confidence))
+        display.write_parameters_file(out_dir / "TSAR_params.txt", params)
     runtime = time.time() - t0
     with (out_dir / "TSAR_results.txt").open("a") as fh:
         fh.write(f"Total runtime: {runtime:.3f} sec "
@@ -323,3 +399,26 @@ def process_scene(scene_root: str | Path,
         results.append(process_view(scene, ref_idx, params, gen,
                                     write_ply=write_ply, device=device))
     return results
+
+
+def fuse_scene(scene_root: str | Path, fp: FusionParams | None = None,
+               params: AlgorithmParams | None = None, *,
+               device: torch.device | str) -> Path:
+    """Fuse every view's TSAR_disp/TSAR_normals into
+    results/TSAR_fused.ply (cameras not rebased: world frame) on
+    `device`, which the caller names."""
+    scene = load_scene(scene_root)
+    fp = fp or FusionParams()
+    params = default_params_for_scene(scene, params)
+    res = scene.root / "results"
+    depths = np.stack([dmb.read_dmb(res / n / "TSAR_disp.dmb")
+                       for n in scene.names])
+    normals = np.stack([dmb.read_dmb(res / n / "TSAR_normals.dmb")
+                        for n in scene.names])
+    cams_world = geo.build_camera_set(list(scene.P),
+                                      cam_scale=params.cam_scale,
+                                      rebase=False, device=device)
+    cloud = fusion_mod.fuse(depths, normals, cams_world, scene.images, fp)
+    out = res / "TSAR_fused.ply"
+    ply.write_ply(out, cloud.points, cloud.normals, cloud.colors)
+    return out
