@@ -11,19 +11,28 @@ line:
 3. kernel B2 (s-volume build) against its plain PyTorch version for the
    1344x2048 synthetic scene's cameras, one source view at its full plane
    count: |delta| median 0, q99.9 <= 1.0, max <= 2.0 intensity levels;
-4. kernel B1 (s-volume NCC cost) against its plain version at 672x1024:
-   a random plane field, 8 candidates with invalid (d = 0) ones, both
-   parities; on pixels where either cost is below 0.99, median < 5e-4 and
-   q99 < 5e-3, fewer than 1% of all pixels off by more than 0.1, and
-   invalid candidates exactly cost_max;
+4. kernel B1 (s-volume NCC cost of all 7 source views with the top-2
+   aggregation, one launch) against its plain version at 672x1024: a
+   random and a smooth plane field, 8 candidates with invalid (d = 0)
+   ones, both parities and the dense grid, and a 7x5 window (the kernel's
+   generic window loop) on one of each; on pixels where either cost is
+   below 0.99, median < 5e-4 and q99 < 5e-3, fewer than 1% of all pixels
+   off by more than 0.1, invalid candidates exactly cost_max with view
+   -1, the ratio within 1e-3 on 99.9% of pixels and the best view equal
+   wherever the costs agree and there is no tie;
+   then both kernels at every shape the main path launches them at
+   (tsar_mvs_tpu_torch/kernel_times.py): milliseconds, the plain
+   version's, the bound, the library call's, agreement at that shape;
+   and B1's two window loops per window sample at full resolution;
 5. the main path: process_view of a 1344x2048, 8-view synthetic scene
    (7 sources, 8 iterations, default AlgorithmParams) with per-stage
-   seconds, peak device memory, kernel launch counts and accuracy against
-   the scene's ground truth (acc2_pm and acc2_final must reach 0.95);
+   seconds, peak device memory, kernel launch counts (in all and by
+   shape, as the wrappers counted them) and accuracy against the scene's
+   ground truth (acc2_pm and acc2_final must reach 0.95);
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
-   the GT cloud of scripts/validate_synthetic.py (F1 must reach 0.94,
+   the GT cloud of utils/synthetic.py::gt_cloud (F1 must reach 0.94,
    every view's acc2_final 0.95; the JAX package's record there is 0.9625,
    RESULTS.md planar:0);
 7. the APD prior: view 1 gets APD/<name>/depths_geom.dmb (GT depth with
@@ -36,14 +45,16 @@ line:
    16384 MiB (acc2_final must reach 0.95); both kernels must launch in
    each PatchMatch run.
 
-Then one JSON line of per-kernel results, the card line, and last
-{"ok": true, "device": {...}}.
+Then PatchMatch's seconds split into B1, B2 and the rest (profiler),
+one JSON line of per-kernel results (the top-level numbers of a kernel
+are those of its level-1 shape, "shapes" holds every timed shape and
+"launches_by_shape" the main path's counted launches at each), the card
+line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -52,31 +63,11 @@ from pathlib import Path
 H, W, VIEWS = 1344, 2048, 8
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, repeats: int) -> float:
-    """Mean device milliseconds per call over `repeats` after a warm-up."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / repeats
-
-
 def check_warp(scene, params, dev) -> dict:
     import torch
     from tsar_mvs_tpu_torch import geometry as geo
     from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.kernel_times import time_ms
     from tsar_mvs_tpu_torch.ops import cuda_warp
     from tsar_mvs_tpu_torch.ops import svolume as sv
     order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
@@ -116,87 +107,87 @@ def check_warp(scene, params, dev) -> dict:
     return res
 
 
-def check_ncc(scene, params, dev) -> dict:
+def check_ncc(lv: dict, gt: dict) -> float:
+    """Kernel B1 against its plain version on one level's inputs
+    (`kernel_times.level_inputs`): all source views in one launch, 8
+    candidates of which one is invalid everywhere and one on 10% of the
+    pixels. Returns the largest |delta| of the cost."""
+    import dataclasses
     import torch
-    from tsar_mvs_tpu_torch import geometry as geo
-    from tsar_mvs_tpu_torch import pipeline
-    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch.ops import checkerboard as cb
     from tsar_mvs_tpu_torch.ops import cuda_ncc, ncc
     from tsar_mvs_tpu_torch.ops import svolume as sv
-    order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
-    cams = geo.build_camera_set([scene.P[i] for i in order], cam_scale=2.0,
-                                depth_min=scene.depth_min,
-                                depth_max=scene.depth_max, device=dev)
-    params2 = params.with_depth_range(scene.depth_min, scene.depth_max,
-                                      float(cams.f))
-    imgs = pm.downsample_2x(torch.as_tensor(scene.images[order],
-                                            device=dev))
-    Hs, Ws = imgs.shape[1:]
-    counts = pipeline.scene_plane_counts(scene, params, (4, 2, 1),
-                                         len(view_ids))[1]
-    slot = max(range(len(counts)), key=lambda k: counts[k])
-    s_lo, s_hi = sv.s_range_for_depths(params2.depth_min, params2.depth_max,
-                                       params2.svolume_margin)
-    vol = sv.build_svolume(imgs[slot + 1:slot + 2], cams.A[slot + 1:slot + 2],
-                           cams.b[slot + 1:slot + 2], s_lo, s_hi,
-                           [counts[slot]])
-    stats = ncc.precompute_ref_stats(imgs[0], cams, params2)
+    dev = lv["imgs"].device
+    Hs, Ws = lv["imgs"].shape[1:]
+    vol, params, stats = lv["vol"], lv["params"], lv["stats"]
     g = torch.Generator(device=dev).manual_seed(7)
     C = 8
-    n = geo.normalize(torch.randn((C, Hs, Ws, 3), generator=g, device=dev))
-    n = geo.hemisphere_flip(n, geo.view_vectors(cams, Hs, Ws))
-    depth = (scene.depth_min * 1.05 + (scene.depth_max * 0.95
-             - scene.depth_min * 1.05)
-             * torch.rand((C, Hs, Ws), generator=g, device=dev))
-    d = geo.plane_d_from_depth(n, stats.rays, depth)
     invalid = torch.zeros((C, Hs, Ws), dtype=torch.bool, device=dev)
     invalid[7] = True
     invalid[5] = torch.rand((Hs, Ws), generator=g, device=dev) < 0.1
-    d = torch.where(invalid, 0.0, d)
-    res = {"shape": [C, Hs, Ws // 2], "planes": counts[slot]}
+    # The 7x5 window takes the kernel's generic window loop.
+    small = dataclasses.replace(params, box_hsize=7, box_vsize=5)
+    windows = {(11, 11): (params, stats),
+               (7, 5): (small, ncc.precompute_ref_stats(
+                   lv["imgs"][0], lv["cams"], small))}
     worst = 0.0
-    for parity in (0, 1):
-        st = ncc.compress_stats(stats, parity)
-        n_p = cb.parity_compress_vec(n, parity)
-        d_p = cb.parity_compress(d, parity)
-        inv_p = cb.parity_compress(invalid, parity)
-        s0, sx, sy = sv.plane_scalars(n_p, d_p, st)
-
-        def kernel():
-            return cuda_ncc.svolume_cost(vol.data[0], vol.s_lo, vol.inv_ds[0],
-                                         s0, sx, sy, st, params2, parity)
-
-        def plain():
-            return cuda_ncc.svolume_cost_plain(vol.data[0], vol.s_lo,
-                                               vol.inv_ds[0], s0, sx, sy, st,
-                                               params2, parity)
-
-        ck, cp = kernel(), plain()
-        delta = (ck - cp).abs()
-        sharp = (torch.minimum(ck, cp) < 0.99) & ~inv_p
-        ds_ = delta[sharp]
-        r = {"sharp_frac": float(sharp.float().mean()),
-             "median": float(torch.quantile(ds_, 0.5)),
-             "q99": float(torch.quantile(ds_, 0.99)),
-             "max_sharp": float(ds_.max()), "max": float(delta.max()),
-             "frac_gt_0.1": float((delta > 0.1).float().mean()),
-             "invalid_exact": bool((ck[inv_p] == params2.cost_max).all()
-                                   and (cp[inv_p] == params2.cost_max).all())}
-        if parity == 0:
-            r["ms"] = time_ms(kernel, 10)
-            r["plain_ms"] = time_ms(plain, 3)
-            res.update(ms=r["ms"], plain_ms=r["plain_ms"])
-        ok = (r["median"] < 5e-4 and r["q99"] < 5e-3
-              and r["frac_gt_0.1"] < 0.01 and r["invalid_exact"]
-              and r["sharp_frac"] > 0.3)
-        worst = max(worst, r["max"])
-        print(f"B1 ncc vs plain, parity {parity}: {json.dumps(r)} -> "
-              f"{'PASS' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit("B1 disagrees with its plain version")
-    res["max_abs_err"] = worst
-    return res
+    for field in ("random", "smooth"):
+        n, d = (kt.random_field(lv, C, g) if field == "random"
+                else kt.smooth_field(lv, gt, C, g))
+        d = torch.where(invalid, 0.0, d)
+        cases = [((11, 11), parity) for parity in (0, 1, None)]
+        cases.append(((7, 5), 0 if field == "random" else None))
+        for window, parity in cases:
+            params, stats = windows[window]
+            if parity is None:
+                st, n_p, d_p, inv_p = stats, n, d, invalid
+            else:
+                st = ncc.compress_stats(stats, parity)
+                n_p = cb.parity_compress_vec(n, parity)
+                d_p = cb.parity_compress(d, parity)
+                inv_p = cb.parity_compress(invalid, parity)
+            s0, sx, sy = sv.plane_scalars(n_p, d_p, st)
+            args = (vol.data, vol.s_lo, vol.inv_ds, lv["ids"], s0, sx, sy,
+                    st, params, parity)
+            before = cuda_ncc.LAUNCHES
+            mk = cuda_ncc.multiview_cost(*args)
+            launches = cuda_ncc.LAUNCHES - before
+            mp = cuda_ncc.multiview_cost_plain(*args)
+            ck, cp = mk.cost, mp.cost
+            delta = (ck - cp).abs()
+            sharp = (torch.minimum(ck, cp) < 0.99) & ~inv_p
+            ds_ = delta[sharp]
+            r_delta = (mk.ratio - mp.ratio).abs()
+            untied = (ck == cp) & (mp.ratio != 1.0)
+            r = {"field": field, "parity": parity, "window": list(window),
+                 "launches": launches,
+                 "sharp_frac": float(sharp.float().mean()),
+                 "median": float(torch.quantile(ds_[:1 << 24], 0.5)),
+                 "q99": float(torch.quantile(ds_[:1 << 24], 0.99)),
+                 "max_sharp": float(ds_.max()), "max": float(delta.max()),
+                 "frac_gt_0.1": float((delta > 0.1).float().mean()),
+                 "invalid_exact": bool(
+                     (ck[inv_p] == params.cost_max).all()
+                     and (cp[inv_p] == params.cost_max).all()
+                     and (mk.best_view[inv_p] == -1).all()
+                     and (mk.ratio[inv_p] == 0).all()),
+                 "ratio_max": float(r_delta.max()),
+                 "ratio_frac_gt_1e-3": float((r_delta > 1e-3).float()
+                                             .mean()),
+                 "best_view_mismatches": int(
+                     (mk.best_view[untied] != mp.best_view[untied]).sum())}
+            ok = (r["median"] < 5e-4 and r["q99"] < 5e-3
+                  and r["frac_gt_0.1"] < 0.01 and r["invalid_exact"]
+                  and r["sharp_frac"] > 0.3 and launches == 1
+                  and r["ratio_frac_gt_1e-3"] < 1e-3
+                  and r["best_view_mismatches"] == 0)
+            worst = max(worst, r["max"])
+            print(f"B1 ncc vs plain: {json.dumps(r)} -> "
+                  f"{'PASS' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit("B1 disagrees with its plain version")
+    return worst
 
 
 def acc2_for(scene_gt, scene, ref: int, depth):
@@ -204,7 +195,7 @@ def acc2_for(scene_gt, scene, ref: int, depth):
     `ref` (finite GT, not weak, seen by a source of its pair.txt) and over
     its weak pixels: {"textured": x, "weak": y}."""
     import numpy as np
-    from tsar_mvs_tpu.utils.synthetic import source_coverage
+    from tsar_mvs_tpu_torch.utils.synthetic import source_coverage
     from tsar_mvs_tpu_torch import pipeline
     order, _ = pipeline.view_image_order(scene, ref, 14)
     gt = scene_gt.depth[ref]
@@ -238,6 +229,8 @@ def reset_launches() -> None:
     from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
     cuda_ncc.LAUNCHES = 0
     cuda_warp.LAUNCHES = 0
+    cuda_ncc.LAUNCHES_BY_SHAPE.clear()
+    cuda_warp.LAUNCHES_BY_SHAPE.clear()
 
 
 def read_launches() -> dict:
@@ -245,10 +238,22 @@ def read_launches() -> dict:
     return {"ncc": cuda_ncc.LAUNCHES, "warp": cuda_warp.LAUNCHES}
 
 
+def read_launches_by_shape() -> dict:
+    """The wrappers' counts by shape: B1 by packed or dense grid and
+    candidates of the launch, B2 by image grid and planes."""
+    from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
+    return {"ncc": [{"grid": [hc, wc], "C": c, "launches": n}
+                    for (hc, wc, c), n
+                    in sorted(cuda_ncc.LAUNCHES_BY_SHAPE.items())],
+            "warp": [{"grid": [h, w], "planes": s, "launches": n}
+                     for (s, h, w), n
+                     in sorted(cuda_warp.LAUNCHES_BY_SHAPE.items())]}
+
+
 def run_main_path(scene_gt, root: Path, dev) -> dict:
     import numpy as np
     import torch
-    from tsar_mvs_tpu.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch import pipeline
     scene = pipeline.load_scene(root)
     stages: dict[str, float] = {}
@@ -262,6 +267,7 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = read_launches()
+    by_shape = read_launches_by_shape()
     peak = torch.cuda.max_memory_allocated()
 
     pm_acc = acc2_for(scene_gt, scene, 0, result.depth_pm)
@@ -278,7 +284,8 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     finite = bool(np.isfinite(result.depth).all()
                   and result.depth.shape == (H, W))
     res = {"seconds": total, "stages": stages, "peak_bytes": peak,
-           "launches": launches, **acc, "missing": missing,
+           "launches": launches, "launches_by_shape": by_shape, **acc,
+           "missing": missing,
            "depth_finite": finite}
     print(f"main path: {json.dumps(res)}", flush=True)
     if missing or not finite:
@@ -286,29 +293,22 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
                          f"finite depth {finite}")
     if min(launches.values()) == 0:
         raise SystemExit(f"a kernel was not launched: {launches}")
+    for kernel, total in launches.items():
+        if sum(sh["launches"] for sh in by_shape[kernel]) != total:
+            raise SystemExit(f"{kernel}: launches by shape {by_shape} do "
+                             f"not add up to {total}")
     if acc["acc2_pm"] < 0.95 or acc["acc2_final"] < 0.95:
         raise SystemExit(f"accuracy below 0.95: {acc}")
     return res
-
-
-def load_gt_cloud(scene_gt):
-    """The GT cloud of scripts/validate_synthetic.py (every view's GT
-    depth backprojected, stride 4), imported by path."""
-    import importlib.util
-    path = (Path(__file__).resolve().parent / "scripts"
-            / "validate_synthetic.py")
-    spec = importlib.util.spec_from_file_location("validate_synthetic", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.gt_cloud(scene_gt)
 
 
 def run_scene_phase(scene_gt, root: Path, dev) -> dict:
     """process_scene (resume: view 0 is phase 5's), fuse_scene, F1@2cm."""
     import numpy as np
     import torch
-    from tsar_mvs_tpu import eval as ev
-    from tsar_mvs_tpu.utils import dmb, ply
+    from tsar_mvs_tpu_torch import eval as ev
+    from tsar_mvs_tpu_torch.utils import dmb, ply
+    from tsar_mvs_tpu_torch.utils.synthetic import gt_cloud
     from tsar_mvs_tpu_torch import pipeline
     scene = pipeline.load_scene(root)
     torch.cuda.synchronize()
@@ -333,7 +333,7 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
     n_points = int(pts.shape[0])
     pts = pts[np.isfinite(pts).all(1) & (np.abs(pts) > 1e-9).any(1)]
     t0 = time.perf_counter()
-    fs = ev.point_cloud_fscore(pts, load_gt_cloud(scene_gt), threshold=0.02)
+    fs = ev.point_cloud_fscore(pts, gt_cloud(scene_gt), threshold=0.02)
     res = {"per_view_s": per_view_s, "views_s": views_s,
            "acc2_final": acc2_final, "fuse_s": fuse_s,
            "points": n_points, "f1": fs.f1, "precision": fs.precision,
@@ -364,8 +364,8 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
     from the lifted prior under two s-volume budgets."""
     import numpy as np
     import torch
-    from tsar_mvs_tpu.config import AlgorithmParams
-    from tsar_mvs_tpu.utils import display, dmb
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.utils import display, dmb
     from tsar_mvs_tpu_torch import pipeline
     scene = pipeline.load_scene(root)
     ref = 1
@@ -427,22 +427,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from tsar_mvs_tpu.config import AlgorithmParams
-    from tsar_mvs_tpu.utils.synthetic import make_scene
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.utils.synthetic import make_scene
     from tsar_mvs_tpu_torch import _build, pipeline
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.utils import native
 
     dev = torch.device("cuda:0")
-    card = card_line()
+    card = kt.card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
     t = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.2f} s ({_build.library_path().name}); "
-          f"{' | '.join(ptxas)}", flush=True)
+          f"{' | '.join(_build.kernel_resources())}", flush=True)
+    # Which path the weak_texture stage's seconds belong to.
+    host_lib = ("loaded" if native.load() is not None
+                else "not available, numpy and scipy run instead")
+    print(f"host library (native/): {host_lib}", flush=True)
 
     t = time.perf_counter()
     scene_gt = make_scene(height=H, width=W, num_views=VIEWS, seed=0)
@@ -453,28 +457,77 @@ def main() -> int:
     print(f"scene: {H}x{W}x{VIEWS} in {time.perf_counter() - t:.1f} s",
           flush=True)
 
+    gt = {"depth": scene_gt.depth[0],
+          "normal_world": scene_gt.normal_world[0]}
     warp = check_warp(scene, params, dev)
-    ncc_res = check_ncc(scene, params, dev)
-    torch.cuda.empty_cache()
+    b1_shapes, b2_shapes, ncc_worst = [], [], 0.0
+    for li in range(len(kt.LEVELS)):
+        lv = kt.level_inputs(scene, params, li, dev)
+        b2_shapes.append(kt.time_b2_level(lv))
+        if lv["level"] == 2:
+            ncc_worst = check_ncc(lv, gt)
+        b1_shapes.extend(kt.time_b1_level(lv, gt))
+        if lv["level"] == 1:
+            b1_windows = kt.time_b1_windows(lv, gt)
+        del lv
+        torch.cuda.empty_cache()
+    for sh in b1_shapes:
+        if (sh["max_abs_err"] > 1e-3 or sh["ratio_max_abs_err"] > 1e-3
+                or sh["best_view_mismatches"]):
+            raise SystemExit(f"B1 disagrees with its plain version at "
+                             f"{sh}")
+    for sh in b1_windows:
+        if (sh["max_abs_err"] > 1e-3 or sh["ratio_max_abs_err"] > 1e-3
+                or sh["best_view_mismatches"]):
+            raise SystemExit(f"B1 disagrees with its plain version at "
+                             f"{sh}")
+    for sh in b2_shapes:
+        if sh["max_abs_err"] > 2.0:
+            raise SystemExit(f"B2 disagrees with its plain version at {sh}")
     main_res = run_main_path(scene_gt, root, dev)
+    plan = kt.launch_plan(scene, params)
+    evaluations = sum(p["propagation"] + p["refinement"] + p["init"]
+                      for p in plan)
+    builds = sum(p["builds"] for p in plan)
+    print(f"launch plan: {json.dumps(plan)}", flush=True)
+    if main_res["launches"] != {"ncc": evaluations, "warp": builds}:
+        raise SystemExit(f"launches {main_res['launches']} are not one per "
+                         f"cost evaluation ({evaluations}) and one per "
+                         f"volume ({builds})")
+    torch.cuda.empty_cache()
+    split = kt.patchmatch_split(scene, params, dev)
+    if split["device"] is None:
+        raise SystemExit("the profiler reported no device activity")
+    by_kind = kt.b1_seconds_by_kind(plan, split["b1_each_us"])
+    print(f"B1 on the main path, [seconds, launches] by level and kind: "
+          f"{json.dumps(by_kind)}", flush=True)
     torch.cuda.empty_cache()
     run_scene_phase(scene_gt, root, dev)
     torch.cuda.empty_cache()
     run_apd_phase(scene_gt, root, dev)
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    head_b1 = next(sh for sh in b1_shapes if sh["level"] == 1
+                   and sh["C"] == 1 and sh["field"] == "smooth")
+    head_b2 = next(sh for sh in b2_shapes if sh["level"] == 1)
     kernels = [
-        {"name": "svol_ncc", "route": "cuda",
+        {"name": "svol_ncc_multiview", "route": "cuda",
          "source": "tsar_mvs_tpu_torch/csrc/ncc.cu",
          "replaces": "tsar_mvs_tpu/ops/pallas_ncc.py:117",
          "launches": main_res["launches"]["ncc"],
-         "max_abs_err": ncc_res["max_abs_err"], "ms": ncc_res["ms"],
-         "plain_ms": ncc_res["plain_ms"]},
+         "max_abs_err": max(ncc_worst,
+                            max(sh["max_abs_err"] for sh in b1_shapes)),
+         **{k: head_b1[k] for k in keys}, "shapes": b1_shapes,
+         "windows": b1_windows,
+         "launches_by_shape": main_res["launches_by_shape"]["ncc"]},
         {"name": "warp_build", "route": "cuda",
          "source": "tsar_mvs_tpu_torch/csrc/warp.cu",
          "replaces": "tsar_mvs_tpu/ops/pallas_warp.py:155",
          "launches": main_res["launches"]["warp"],
-         "max_abs_err": warp["max"], "ms": warp["ms"],
-         "plain_ms": warp["plain_ms"]},
+         "max_abs_err": max(warp["max"],
+                            max(sh["max_abs_err"] for sh in b2_shapes)),
+         **{k: head_b2[k] for k in keys}, "shapes": b2_shapes,
+         "launches_by_shape": main_res["launches_by_shape"]["warp"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -28,6 +28,7 @@ PLANE_SPACING_2K = 34.0
 
 def test_apd_patchmatch_drop_at_2k_plane_spacing_matches_jax(scene,
                                                              tmp_path):
+    from tsar_mvs_tpu_torch import convert
     from tsar_mvs_tpu_torch import pipeline as tpipe
     params = AlgorithmParams(svolume_step_px=PLANE_SPACING_2K, **PARAMS)
     root = scene.export(tmp_path / "jax" / "scene")
@@ -38,7 +39,8 @@ def test_apd_patchmatch_drop_at_2k_plane_spacing_matches_jax(scene,
     acc = {"prior": prior, "jax": _acc2(depth_pm, scene)}
     root = scene.export(tmp_path / "torch" / "scene")
     write_prior(scene, root)
-    res = tpipe.process_view(tpipe.load_scene(root), 0, params,
+    res = tpipe.process_view(tpipe.load_scene(root), 0,
+                             convert.algorithm_params(params),
                              pm_iterations=2,
                              out_dir=tmp_path / "torch" / "out",
                              device="cpu")

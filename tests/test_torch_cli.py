@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from tsar_mvs_tpu.config import FusionParams
 from tsar_mvs_tpu.utils import dmb, ply
 from tsar_mvs_tpu_torch import cli
+from tsar_mvs_tpu_torch.config import FusionParams
 
 torch.set_num_threads(2)
 CPU = ["--device", "cpu"]
@@ -183,7 +183,8 @@ def test_fuse_with_fuse_scene_flags(small, root):
     pts = ply.read_ply(root / "results" / "TSAR_fused.ply")[0]
     ref = fusion.fuse(small.depth.astype(np.float32),
                       small.normal_world.astype(np.float32),
-                      geo.build_camera_set(list(small.P), rebase=False),
+                      geo.build_camera_set(list(small.P), rebase=False,
+                                           device="cpu"),
                       small.images, FusionParams())
     assert pts.shape[0] == ref.points.shape[0] > 0.5 * 48 * 64
 

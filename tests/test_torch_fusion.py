@@ -43,7 +43,7 @@ def data(scene):
     depths = np.where(np.isfinite(scene.depth), scene.depth,
                       0.0).astype(np.float32)
     normals = scene.normal_world.astype(np.float32)
-    return dict(jc=jc, tc=convert.camera_set(jc), depths=depths,
+    return dict(jc=jc, tc=convert.camera_set(jc, "cpu"), depths=depths,
                 normals=normals)
 
 
@@ -84,7 +84,8 @@ def test_fusion_votes_match_jax(data, case, ref):
         jnp.asarray(normals), data["jc"], jnp.asarray(used), fp)
     t = fusion.fusion_votes(ref, torch.as_tensor(depths),
                             torch.as_tensor(normals), data["tc"],
-                            torch.as_tensor(used), fp)
+                            torch.as_tensor(used),
+                            convert.fusion_params(fp))
     j = [np.asarray(a) for a in j]
     t = [a.numpy() for a in t]
     for name, k in (("count", 2), ("emit", 3), ("consumed", 4)):
@@ -106,7 +107,7 @@ def test_fuse_matches_jax(scene, data, used_list):
     j = jfusion.fuse(data["depths"], data["normals"], data["jc"],
                      scene.images, fp)
     t = fusion.fuse(data["depths"], data["normals"], data["tc"],
-                    scene.images, fp)
+                    scene.images, convert.fusion_params(fp))
     nj, nt = j.points.shape[0], t.points.shape[0]
     assert abs(nt - nj) <= 0.001 * nj, (nt, nj)
     hj = np.bincount(j.view_of, minlength=5)
@@ -120,7 +121,8 @@ def test_fuse_matches_jax(scene, data, used_list):
 
 def test_used_list_deduplicates(scene, data):
     counts = [fusion.fuse(data["depths"], data["normals"], data["tc"],
-                          scene.images, FusionParams(used_list=u)
+                          scene.images,
+                          convert.fusion_params(FusionParams(used_list=u))
                           ).points.shape[0] for u in (True, False)]
     assert counts[0] < counts[1]
 
@@ -144,14 +146,16 @@ def test_nonfinite_coordinates_stay_out_of_bounds(data):
     depths[0] = float("inf")
     _, _, count, emit, consumed = fusion.fusion_votes(
         0, depths, torch.as_tensor(data["normals"]), data["tc"],
-        torch.zeros(depths.shape, dtype=torch.bool), FusionParams())
+        torch.zeros(depths.shape, dtype=torch.bool),
+        convert.fusion_params(FusionParams()))
     assert int(count.sum()) == 0 and not emit.any() and not consumed.any()
 
 
 def test_inconsistent_depths_rejected(scene, data):
     """Corrupting every source view's depths suppresses the points of view
     0 that need two consistent views (tests/test_fusion.py's case)."""
-    fp = FusionParams(used_list=False, num_consistent=2)
+    fp = convert.fusion_params(FusionParams(used_list=False,
+                                            num_consistent=2))
     base = fusion.fuse(data["depths"], data["normals"], data["tc"],
                        scene.images, fp)
     bad = data["depths"].copy()
@@ -185,8 +189,8 @@ def test_fuse_scene_matches_jax(scene, tmp_path):
         max_line_gap=3, ransac_iters=2000, ransac_anneal_rounds=200,
         ransac_thr_base=0.005, ransac_thr_max=0.05, ransac_thr_step=0.002,
         wmf_drift_thr=2.0, wmf_iters=2, wmf_final_iters=3)
-    results = tpipe.process_scene(root, params, write_ply=False,
-                                  device="cpu")
+    results = tpipe.process_scene(root, convert.algorithm_params(params),
+                                  write_ply=False, device="cpu")
     assert len(results) == scene.num_views
     gt = _gt_cloud(scene)
 

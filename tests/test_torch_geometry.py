@@ -21,7 +21,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 def both(scene):
     kw = dict(depth_min=scene.depth_min, depth_max=scene.depth_max)
     return (jgeo.build_camera_set(list(scene.P), **kw),
-            geo.build_camera_set(list(scene.P), **kw))
+            geo.build_camera_set(list(scene.P), device="cpu", **kw))
 
 
 @pytest.mark.parametrize("cam_scale,rebase", [(1.0, True), (2.0, True),
@@ -30,7 +30,7 @@ def test_build_camera_set_matches_jax(scene, cam_scale, rebase):
     kw = dict(cam_scale=cam_scale, depth_min=scene.depth_min,
               depth_max=scene.depth_max, rebase=rebase)
     j = jgeo.build_camera_set(list(scene.P), **kw)
-    t = geo.build_camera_set(list(scene.P), **kw)
+    t = geo.build_camera_set(list(scene.P), device="cpu", **kw)
     for field in jgeo.CameraSet._fields:
         np.testing.assert_allclose(getattr(t, field).numpy(),
                                    np.asarray(getattr(j, field)), **TOL,
@@ -108,7 +108,7 @@ def test_plane_algebra_matches_jax(both):
 
 def test_convert_camera_set_roundtrip(both):
     jc, tc = both
-    conv = convert.camera_set(jc)
+    conv = convert.camera_set(jc, "cpu")
     for field in geo.CameraSet._fields:
         np.testing.assert_array_equal(getattr(conv, field).numpy(),
                                       getattr(tc, field).numpy())

@@ -9,6 +9,8 @@ fewer than 1% of all pixels off by more than 0.1. The sums run in another
 order (per offset here, per plane in the oracle's scan), and NCC divides by
 sqrt(var_src), which amplifies that noise without bound as var_src -> 0."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,13 +47,14 @@ def setup():
     scene = make_scene(height=H, width=W, num_views=3, seed=2)
     jc = jgeo.build_camera_set(list(scene.P), depth_min=scene.depth_min,
                                depth_max=scene.depth_max)
-    tc = convert.camera_set(jc)
+    tc = convert.camera_set(jc, "cpu")
     params = AlgorithmParams().with_depth_range(
         scene.depth_min, scene.depth_max, float(jc.f))
     imgs = jnp.asarray(scene.images, jnp.float32)
     jstats = jncc.precompute_ref_stats(imgs[0], jc, params)
+    tparams = convert.algorithm_params(params)
     tstats = ncc.precompute_ref_stats(torch.as_tensor(scene.images[0]), tc,
-                                      params)
+                                      tparams)
     idx = jnp.asarray([1, 2], jnp.int32)
     s_lo, s_hi = jsv.s_range_for_depths(scene.depth_min, scene.depth_max,
                                         params.svolume_margin)
@@ -60,7 +63,7 @@ def setup():
                               step_px=params.svolume_step_px)
     jvol = jsv.build_svolume(imgs[idx], jc.A[idx], jc.b[idx], s_lo, s_hi,
                              counts)
-    tvol = convert.svolume(jvol)
+    tvol = convert.svolume(jvol, "cpu")
     # A random plane field (n on the camera-facing hemisphere, depth
     # inside the scene range), made with numpy and handed to both sides.
     rng = np.random.default_rng(4)
@@ -72,7 +75,8 @@ def setup():
                         (2, H, W))
     rays = np.asarray(jstats.rays)
     d = -depth * np.sum(n * rays, -1)
-    return dict(scene=scene, jc=jc, tc=tc, params=params, imgs=imgs,
+    return dict(scene=scene, jc=jc, tc=tc, params=params, tparams=tparams,
+                imgs=imgs,
                 jstats=jstats, tstats=tstats, jvol=jvol, tvol=tvol,
                 counts=counts, s_lo=s_lo, n=n.astype(np.float32),
                 d=d.astype(np.float32))
@@ -108,14 +112,15 @@ def test_plain_cost_matches_oracle(setup, parity):
                                   tst)
     cj = np.asarray(jsv.svolume_cost_ab(s["jvol"], 0, j0, jx, jy, jst,
                                         s["params"], parity))
-    ct = sv.svolume_cost(s["tvol"], 0, t0, tx, ty, tst, s["params"],
-                         parity).numpy()
+    ct = cuda_ncc.svolume_cost_plain(
+        s["tvol"].data[0], s["tvol"].s_lo, s["tvol"].inv_ds[0], t0, tx, ty,
+        tst, s["tparams"], parity).numpy()
     assert ct.shape == cj.shape
     assert_cost_agreement(ct, cj)
 
     ids = torch.tensor([1, 2])
     mt = sv.multiview_cost_svolume(s["tvol"], ids, torch.as_tensor(n),
-                                   torch.as_tensor(d), tst, s["params"],
+                                   torch.as_tensor(d), tst, s["tparams"],
                                    parity)
     mj = jsv.multiview_cost_svolume(s["jvol"], jnp.asarray([1, 2]),
                                     jnp.ones((2,), bool), jnp.asarray(n),
@@ -145,7 +150,7 @@ def test_plain_cost_matches_pallas_interpret(setup, monkeypatch):
                                   jnp.asarray(d), jst, s["params"], parity)
     mt = sv.multiview_cost_svolume(s["tvol"], torch.tensor([1, 2]),
                                    torch.as_tensor(n), torch.as_tensor(d),
-                                   tst, s["params"], parity)
+                                   tst, s["tparams"], parity)
     assert_cost_agreement(mt.cost.numpy(), np.asarray(mj.cost))
 
 
@@ -160,12 +165,12 @@ def test_invalid_candidates_cost_max_and_do_not_leak(setup):
     d = cb.parity_compress(torch.as_tensor(s["d"][0]), parity)
     ids = torch.tensor([1, 2])
     solo = sv.multiview_cost_svolume(s["tvol"], ids, n[None], d[None], tst,
-                                     s["params"], parity)
+                                     s["tparams"], parity)
     d_half = d.clone()
     d_half[:, ::3] = 0.0
     paired = sv.multiview_cost_svolume(
         s["tvol"], ids, torch.stack([n, n, n]),
-        torch.stack([d, torch.zeros_like(d), d_half]), tst, s["params"],
+        torch.stack([d, torch.zeros_like(d), d_half]), tst, s["tparams"],
         parity)
     np.testing.assert_allclose(paired.cost[0].numpy(), solo.cost[0].numpy(),
                                atol=1e-5)
@@ -187,7 +192,7 @@ def test_rl_cost_fused_matches_jax(setup):
                            torch.as_tensor(s["scene"].images),
                            torch.as_tensor(best_view), (1, 2), s["tc"],
                            torch.as_tensor(n), torch.as_tensor(d),
-                           s["params"])
+                           s["tparams"])
     cj = np.asarray(cj)
     ct = ct.numpy()
     assert (ct[best_view < 0] == 0).all()
@@ -196,35 +201,195 @@ def test_rl_cost_fused_matches_jax(setup):
 
 def test_window_offsets_match():
     for p in (AlgorithmParams(), AlgorithmParams(box_hsize=7, box_vsize=5)):
-        assert ncc.window_offsets(p) == jncc.window_offsets(p)
+        assert ncc.window_offsets(convert.algorithm_params(p)) == \
+            jncc.window_offsets(p)
     assert jax.default_backend() == "cpu"
 
 
+@pytest.fixture(scope="module")
+def wide():
+    """An 8-view scene (7 sources with unequal plane counts) with 8
+    random planes per pixel, for the multi-view evaluation."""
+    Hw, Ww = 48, 96
+    scene = make_scene(height=Hw, width=Ww, num_views=8, seed=5)
+    jc = jgeo.build_camera_set(list(scene.P), depth_min=scene.depth_min,
+                               depth_max=scene.depth_max)
+    params = AlgorithmParams().with_depth_range(
+        scene.depth_min, scene.depth_max, float(jc.f))
+    imgs = jnp.asarray(scene.images, jnp.float32)
+    jstats = jncc.precompute_ref_stats(imgs[0], jc, params)
+    idx = jnp.arange(1, 8, dtype=jnp.int32)
+    s_lo, s_hi = jsv.s_range_for_depths(scene.depth_min, scene.depth_max,
+                                        params.svolume_margin)
+    counts = jsv.plane_counts(np.asarray(jc.A[idx]), np.asarray(jc.b[idx]),
+                              Hw, Ww, s_lo, s_hi,
+                              step_px=params.svolume_step_px)
+    assert len(set(counts)) > 1
+    jvol = jsv.build_svolume(imgs[idx], jc.A[idx], jc.b[idx], s_lo, s_hi,
+                             counts)
+    rng = np.random.default_rng(9)
+    n = rng.standard_normal((8, Hw, Ww, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    vv = np.asarray(jgeo.view_vectors(jc, Hw, Ww))
+    n = np.where(np.sum(n * vv, -1, keepdims=True) > 0, -n, n)
+    depth = rng.uniform(scene.depth_min * 1.05, scene.depth_max * 0.95,
+                        (8, Hw, Ww))
+    d = -depth * np.sum(n * np.asarray(jstats.rays), -1)
+    return dict(jvol=jvol, tvol=convert.svolume(jvol, "cpu"), jstats=jstats,
+                tstats=convert.ref_stats(jstats, "cpu"),
+                tcams=convert.camera_set(jc, "cpu"), params=params,
+                tparams=convert.algorithm_params(params),
+                n=n.astype(np.float32), d=d.astype(np.float32))
+
+
+def _subset(vol, V):
+    """The first V views of an SVolume (either package's)."""
+    return vol._replace(data=tuple(vol.data[:V]),
+                        inv_ds=tuple(vol.inv_ds[:V]))
+
+
+TOL = 5e-3  # the q99 bound of assert_cost_agreement
+
+
+@pytest.mark.parametrize("parity,V,C", [(None, 1, 1), (0, 3, 4), (1, 7, 8),
+                                        (0, 7, 1), (1, 1, 4), (None, 3, 8)])
+def test_multiview_plain_matches_jax(wide, parity, V, C):
+    """The fused evaluation's plain version (per-view plain costs through
+    the streaming top-2) against JAX's multiview_cost_svolume: cost within
+    the oracle test's tolerance; best_view equal wherever the winner is
+    clear (the two sides' best and second-best costs differ by more than
+    that tolerance on both, up to 0.1% of such pixels); ratio within it
+    there too."""
+    w = wide
+    n, d = w["n"][:C], w["d"][:C]
+    jst, tst = w["jstats"], w["tstats"]
+    if parity is not None:
+        n = np.array(jcb.parity_compress_vec(jnp.asarray(n), parity))
+        d = np.array(jcb.parity_compress(jnp.asarray(d), parity))
+        jst = jncc.compress_stats(jst, parity)
+        tst = ncc.compress_stats(tst, parity)
+    ids = list(range(1, V + 1))
+    mj = jsv.multiview_cost_svolume(
+        _subset(w["jvol"], V), jnp.asarray(ids), jnp.ones((V,), bool),
+        jnp.asarray(n), jnp.asarray(d), jst, w["params"], parity)
+    mt = sv.multiview_cost_svolume(
+        _subset(w["tvol"], V), torch.tensor(ids), torch.as_tensor(n),
+        torch.as_tensor(d), tst, w["tparams"], parity)
+    cj, ct = np.asarray(mj.cost), mt.cost.numpy()
+    assert ct.shape == cj.shape and mt.best_view.dtype == torch.int32
+    assert_cost_agreement(ct, cj)
+    rj, rt = np.asarray(mj.ratio), mt.ratio.numpy()
+    if V == 1:
+        clear = np.minimum(cj, ct) < jncc.MAXCOST - TOL
+        assert (rt[ct < jncc.MAXCOST] == 1.0).all()
+    else:
+        # second = best / ratio; a clear winner leads by more than TOL.
+        lead_j = np.where(rj > 0, cj / np.maximum(rj, 1e-12) - cj, 0.0)
+        lead_t = np.where(rt > 0, ct / np.maximum(rt, 1e-12) - ct, 0.0)
+        clear = (np.minimum(lead_j, lead_t) > 2 * TOL) \
+            & (np.maximum(cj, ct) < jncc.MAXCOST - TOL)
+    assert clear.mean() > 0.3
+    # The cost tolerance allows rare outliers (a per-view cost off by more
+    # than 0.1 on up to 1% of pixels), and one of those can flip a winner.
+    same = (mt.best_view.numpy() == np.asarray(mj.best_view))[clear]
+    assert same.mean() > 0.999, float(same.mean())
+    sharp = clear & (np.minimum(ct, cj) < 0.99)
+    assert np.quantile(np.abs(rt - rj)[sharp], 0.99) < 2e-2
+
+
+def _toy_multiview(costs, ids):
+    """aggregate_streaming and a plain numpy top-2 on given per-view
+    costs (V, ...)."""
+    costs = np.asarray(costs, np.float32)
+    mv = ncc.aggregate_streaming(
+        [lambda v=v: torch.as_tensor(costs[v]) for v in range(len(costs))],
+        torch.tensor(ids))
+    return mv
+
+
+def test_aggregation_ties_and_all_invalid():
+    """The streaming top-2's corner cases, as the kernel reproduces them:
+    the earlier view wins a tie (strict <) and the ratio is then 1; a
+    pixel with no view under MAXCOST gets view -1 and ratio 0; with one
+    view second = best; ids come from the table."""
+    ids = [5, 2, 9]
+    costs = [[0.5, 2.0, 0.7, 0.3], [0.5, 2.0, 0.2, 0.3], [0.9, 2.0, 0.2, 0.1]]
+    mv = _toy_multiview(costs, ids)
+    np.testing.assert_array_equal(mv.best_view.numpy(), [5, -1, 2, 9])
+    np.testing.assert_allclose(mv.cost.numpy(), [0.5, 2.0, 0.2, 0.1])
+    np.testing.assert_allclose(mv.ratio.numpy(), [1.0, 0.0, 1.0, 0.1 / 0.3],
+                               rtol=1e-6)
+    one = _toy_multiview(costs[:1], ids[:1])
+    np.testing.assert_array_equal(one.best_view.numpy(), [5, -1, 5, 5])
+    np.testing.assert_allclose(one.ratio.numpy(), [1.0, 0.0, 1.0, 1.0])
+
+
+def test_multiview_nonfinite_scalars_and_all_invalid(wide):
+    """Non-finite plane scalars (d = 0) through the fused evaluation: the
+    candidate costs cost_max against every view, so the pixel has no
+    valid view (best_view -1, ratio 0), for V = 1 and V = 7; NaN normals
+    do the same; finite candidates beside them are untouched."""
+    w = wide
+    parity = 1
+    tst = ncc.compress_stats(w["tstats"], parity)
+    n = cb.parity_compress_vec(torch.as_tensor(w["n"][:3]), parity).clone()
+    d = cb.parity_compress(torch.as_tensor(w["d"][:3]), parity).clone()
+    d[1] = 0.0
+    n[2, ::2] = float("nan")
+    for V in (1, 7):
+        vol = _subset(w["tvol"], V)
+        ids = torch.arange(1, V + 1)
+        mv = sv.multiview_cost_svolume(vol, ids, n, d, tst, w["tparams"],
+                                       parity)
+        solo = sv.multiview_cost_svolume(vol, ids, n[:1], d[:1], tst,
+                                         w["tparams"], parity)
+        assert torch.equal(mv.cost[0], solo.cost[0])
+        assert torch.equal(mv.best_view[0], solo.best_view[0])
+        assert (mv.cost[1] == w["tparams"].cost_max).all()
+        assert (mv.best_view[1] == -1).all() and (mv.ratio[1] == 0).all()
+        assert (mv.cost[2, ::2] == w["tparams"].cost_max).all()
+        assert (mv.best_view[2, ::2] == -1).all()
+        assert torch.isfinite(mv.ratio).all()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("parity", [None, 0, 1])
-def test_kernel_matches_plain_on_card(setup, parity):
-    """Kernel B1 against its plain version on the card (same volume, same
-    candidates, an invalid one included); needs an NVIDIA GPU."""
+@pytest.mark.parametrize("parity,V,C,box", [
+    (None, 7, 1, (11, 11)), (0, 7, 8, (11, 11)), (1, 3, 4, (11, 11)),
+    (0, 1, 1, (11, 11)), (0, 7, 4, (7, 5)), (None, 3, 1, (7, 5))])
+def test_kernel_matches_plain_on_card(wide, parity, V, C, box):
+    """Kernel B1 (all views and the top-2 in one launch) against its plain
+    version on the card: same volumes, same candidates, an invalid one
+    included; cost and ratio to the spec, best_view equal off ties. The
+    7x5 window takes the kernel's generic window loop. Needs an NVIDIA
+    GPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    s = setup
+    w = wide
     dev = torch.device("cuda")
-    st = s["tstats"] if parity is None else ncc.compress_stats(s["tstats"],
-                                                               parity)
+    tparams = dataclasses.replace(w["tparams"], box_hsize=box[0],
+                                  box_vsize=box[1])
+    st = ncc.precompute_ref_stats(w["tstats"].center, w["tcams"], tparams)
+    if parity is not None:
+        st = ncc.compress_stats(st, parity)
     st = ncc.RefStats(*(f.to(dev) for f in st))
-    n, d = torch.as_tensor(s["n"]), torch.as_tensor(s["d"]).clone()
-    d[1, ::4] = 0.0
+    n = torch.as_tensor(w["n"][:C])
+    d = torch.as_tensor(w["d"][:C]).clone()
+    d[-1, ::4] = 0.0
     if parity is not None:
         n, d = cb.parity_compress_vec(n, parity), cb.parity_compress(d,
                                                                      parity)
     s0, sx, sy = sv.plane_scalars(n.to(dev), d.to(dev), st)
-    vol = s["tvol"].data[0].to(dev)
+    vols = [v.to(dev) for v in w["tvol"].data[:V]]
+    args = (vols, w["tvol"].s_lo, w["tvol"].inv_ds[:V],
+            torch.arange(1, V + 1, device=dev), s0, sx, sy, st, tparams,
+            parity)
     before = cuda_ncc.LAUNCHES
-    ck = cuda_ncc.svolume_cost(vol, s["tvol"].s_lo, s["tvol"].inv_ds[0], s0,
-                               sx, sy, st, s["params"], parity)
-    cp = cuda_ncc.svolume_cost_plain(vol, s["tvol"].s_lo,
-                                     s["tvol"].inv_ds[0], s0, sx, sy, st,
-                                     s["params"], parity)
+    mk = cuda_ncc.multiview_cost(*args)
+    mp = cuda_ncc.multiview_cost_plain(*args)
     torch.cuda.synchronize()
     assert cuda_ncc.LAUNCHES == before + 1
-    assert_cost_agreement(ck.cpu().numpy(), cp.cpu().numpy())
+    assert_cost_agreement(mk.cost.cpu().numpy(), mp.cost.cpu().numpy())
+    untied = (mk.cost == mp.cost) & (mk.ratio != 1.0)
+    assert torch.equal(mk.best_view[untied], mp.best_view[untied])
+    np.testing.assert_allclose(mk.ratio.cpu().numpy(),
+                               mp.ratio.cpu().numpy(), atol=1e-5)

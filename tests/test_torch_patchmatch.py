@@ -61,7 +61,7 @@ def setup():
     scene = make_scene(height=H, width=W, num_views=3, seed=1)
     jc = jgeo.build_camera_set(list(scene.P), depth_min=scene.depth_min,
                                depth_max=scene.depth_max)
-    tc = convert.camera_set(jc)
+    tc = convert.camera_set(jc, "cpu")
     params = AlgorithmParams().with_depth_range(
         scene.depth_min, scene.depth_max, float(jc.f))
     imgs = jnp.asarray(scene.images)
@@ -81,15 +81,16 @@ def setup():
 
     j_cost_fn, j_pctx = jpm._make_cost_and_ctx(jstats, jc, H, W,
                                                eval_view_cost)
+    tparams = convert.algorithm_params(params)
     tstats = ncc.precompute_ref_stats(torch.as_tensor(scene.images[0]), tc,
-                                      params)
+                                      tparams)
     t_cost_fn, t_pctx = pm.make_svolume_cost_fn(
-        tstats, tc, H, W, convert.svolume(jvol), torch.tensor(view_ids),
-        params)
+        tstats, tc, H, W, convert.svolume(jvol, "cpu"),
+        torch.tensor(view_ids), tparams)
     jstate = _state(np.random.default_rng(0), scene, jc)
-    return dict(scene=scene, jc=jc, tc=tc, params=params,
+    return dict(scene=scene, jc=jc, tc=tc, params=params, tparams=tparams,
                 j=(j_cost_fn, j_pctx), t=(t_cost_fn, t_pctx),
-                jstate=jstate, tstate=convert.plane_state(jstate))
+                jstate=jstate, tstate=convert.plane_state(jstate, "cpu"))
 
 
 def test_propagation_pass_matches_jax(setup):
@@ -101,7 +102,7 @@ def test_propagation_pass_matches_jax(setup):
     jout = jpm._propagation_pass(s["jstate"], parity, j_cost_fn, s["jc"],
                                  params, None, j_pctx)
     tout = pm._propagation_pass(s["tstate"], parity, t_cost_fn, s["tc"],
-                                params, t_pctx)
+                                s["tparams"], t_pctx)
 
     # JAX's candidate costs, to find pixels with a clear winner.
     st = s["jstate"]
@@ -147,7 +148,7 @@ def test_prop_banks_zero_selects_all_eight(setup):
     package's `cands[-0:]` slice then keeps all 8 banks. The port does the
     same on purpose."""
     s = setup
-    base = s["params"]
+    base = s["tparams"]
     assert pm.prop_bank_count(dataclasses.replace(base, prop_banks=0)) == 8
     assert pm.prop_bank_count(dataclasses.replace(base, prop_banks=4)) == 4
     assert pm.prop_bank_count(dataclasses.replace(base, prop_banks=8)) == 8
@@ -171,7 +172,7 @@ def test_pyramid_resampling_matches_jax(setup):
         jf = jgeo.build_camera_set(list(scene.P), cam_scale=0.5,
                                    depth_min=scene.depth_min,
                                    depth_max=scene.depth_max)
-        tf = convert.camera_set(jf)
+        tf = convert.camera_set(jf, "cpu")
         ju = jpm.upsample_state_2x(coarse, jf, Hf, Wf)
         tu = pm.upsample_state_2x(s["tstate"], tf, Hf, Wf)
         for field in pm.PlaneState._fields:
@@ -184,9 +185,10 @@ def test_schedules_match():
     for p in (AlgorithmParams(), AlgorithmParams(iterations=2),
               AlgorithmParams(iterations_fine=0),
               AlgorithmParams(refine_dz0_frac=0.05, max_disparity=40.0)):
-        assert pm.refine_schedule(p) == jpm.refine_schedule(p)
+        tp = convert.algorithm_params(p)
+        assert pm.refine_schedule(tp) == jpm.refine_schedule(p)
         for levels in (1, 2, 3):
-            assert pm.iteration_schedule(p, levels) == \
+            assert pm.iteration_schedule(tp, levels) == \
                 jpm.iteration_schedule(p, levels)
 
 
@@ -196,9 +198,9 @@ def test_run_patchmatch_improves_costs(setup):
     s = setup
     g = torch.Generator().manual_seed(0)
     imgs = torch.as_tensor(s["scene"].images)
-    init = pm.run_patchmatch(g, imgs, (1, 2), s["tc"], s["params"],
+    init = pm.run_patchmatch(g, imgs, (1, 2), s["tc"], s["tparams"],
                              iterations=0)
-    out = pm.run_patchmatch(g, imgs, (1, 2), s["tc"], s["params"],
+    out = pm.run_patchmatch(g, imgs, (1, 2), s["tc"], s["tparams"],
                             iterations=2, init_state=init)
     assert out.cost.mean() < init.cost.mean()
     assert (out.cost >= 0).all() and (out.cost <= 2.0).all()

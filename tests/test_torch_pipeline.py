@@ -11,7 +11,8 @@ names, depth map shape and point count. The APD-prior branch
 pm_iterations=0 to 0.03 after refinement, with pm_iterations=2 (full-
 resolution PatchMatch from the lifted prior) to 0.03 after PatchMatch
 and after refinement; state_from_prior to atol 1e-5.
-Also: the CLI surface, and no module of the port imports jax."""
+Also: the CLI surface, and no module of the port (nor chip_smoke) imports
+jax or the JAX package."""
 
 import json
 import subprocess
@@ -24,6 +25,7 @@ import torch
 from tsar_mvs_tpu.config import AlgorithmParams
 from tsar_mvs_tpu.utils import display, dmb, ply
 from tsar_mvs_tpu.utils.synthetic import source_coverage
+from tsar_mvs_tpu_torch.config import AlgorithmParams as TorchParams
 
 torch.set_num_threads(2)
 
@@ -85,7 +87,7 @@ def runs(scene, tmp_path_factory):
     out["jax"] = (root, *jax_process_view(root))
     root = scene.export(tmp_path_factory.mktemp("torch") / "scene")
     res = tpipe.process_view(tpipe.load_scene(root), 0,
-                             AlgorithmParams(**PARAMS), device="cpu")
+                             TorchParams(**PARAMS), device="cpu")
     out["torch"] = (root, res, res.depth_pm)
     return out
 
@@ -137,23 +139,28 @@ def test_cli_scene_fuse_not_ported(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports in a fresh interpreter without
-    pulling in jax."""
+    """After importing every module of the port and chip_smoke in a fresh
+    interpreter, neither jax nor tsar_mvs_tpu (nor any submodule of
+    either) is loaded."""
+    from pathlib import Path
     code = (
         "import importlib, pkgutil, sys, json\n"
         "import tsar_mvs_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'tsar_mvs_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "print(json.dumps({'mods': mods, 'jax': [k for k in sys.modules "
-        "if k == 'jax' or k.startswith('jax.')]}))\n")
+        "import chip_smoke\n"
+        "print(json.dumps({'mods': mods, 'loaded': [k for k in sys.modules "
+        "if k.split('.')[0] in ('jax', 'jaxlib', 'tsar_mvs_tpu')]}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True, timeout=120)
+                         text=True, check=True, timeout=180,
+                         cwd=Path(__file__).resolve().parents[1])
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "tsar_mvs_tpu_torch.pipeline" in res["mods"]
-    assert "tsar_mvs_tpu_torch.ops.cuda_ncc" in res["mods"]
-    assert "tsar_mvs_tpu_torch.models.fusion" in res["mods"]
-    assert res["jax"] == []
+    for mod in ("pipeline", "ops.cuda_ncc", "models.fusion", "config", "eval",
+                "kernel_times", "models.weak_texture", "utils.synthetic",
+                "utils.native"):
+        assert f"tsar_mvs_tpu_torch.{mod}" in res["mods"]
+    assert res["loaded"] == []
 
 
 def write_prior(scene, root, ref=0, seed=0):
@@ -185,7 +192,7 @@ def test_apd_prior_matches_jax(scene, runs, tmp_path):
     for key, pipe, kw in (
             ("jax", jpipe, dict(params=AlgorithmParams(ncc_impl="svolume",
                                                        **PARAMS))),
-            ("torch", tpipe, dict(params=AlgorithmParams(**PARAMS),
+            ("torch", tpipe, dict(params=TorchParams(**PARAMS),
                                   device="cpu"))):
         root = scene.export(tmp_path / key / "scene")
         prior = write_prior(scene, root)
@@ -215,7 +222,7 @@ def test_apd_prior_patchmatch_matches_jax(scene, runs, tmp_path):
     root = scene.export(tmp_path / "torch" / "scene")
     write_prior(scene, root)
     res = tpipe.process_view(tpipe.load_scene(root), 0,
-                             AlgorithmParams(**PARAMS), pm_iterations=2,
+                             TorchParams(**PARAMS), pm_iterations=2,
                              out_dir=tmp_path / "torch" / "out",
                              device="cpu")
     acc["torch"] = (_acc2(res.depth_pm, scene), _acc2(res.depth, scene))
@@ -239,11 +246,11 @@ def test_state_from_prior_matches_jax(scene):
     j = jpm.state_from_prior(depth, normal, jc, jpipe._stats_stub(
         jgeo.pixel_rays(jc, *depth.shape)))
     t = pm.state_from_prior(torch.as_tensor(depth), torch.as_tensor(normal),
-                            convert.camera_set(jc))
+                            convert.camera_set(jc, "cpu"))
     for field in pm.PlaneState._fields:
         jv, tv = np.asarray(getattr(j, field)), getattr(t, field).numpy()
         assert tv.dtype == jv.dtype, field
         np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-5, err_msg=field)
     # The lifted planes reproduce the prior depth.
-    np.testing.assert_allclose(pm.depth_map(t, convert.camera_set(jc)),
-                               depth, rtol=1e-4)
+    np.testing.assert_allclose(
+        pm.depth_map(t, convert.camera_set(jc, "cpu")), depth, rtol=1e-4)

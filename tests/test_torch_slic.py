@@ -11,6 +11,7 @@ import torch
 from tsar_mvs_tpu import pipeline as jpipe
 from tsar_mvs_tpu.config import AlgorithmParams
 from tsar_mvs_tpu.ops import slic as jslic
+from tsar_mvs_tpu_torch import convert
 from tsar_mvs_tpu_torch import pipeline as tpipe
 from tsar_mvs_tpu_torch.ops import slic
 
@@ -29,7 +30,8 @@ def test_slic_stage_and_graph_match_jax(scene, tmp_path):
     params = AlgorithmParams()
     gray = scene.images[0]
     j_full, j_res = jpipe.run_slic_stage(gray, params)
-    t_full, t_res = tpipe.run_slic_stage(gray, params, device="cpu")
+    t_full, t_res = tpipe.run_slic_stage(
+        gray, convert.algorithm_params(params), device="cpu")
     j_lab = np.asarray(j_res.labels)
     t_lab = t_res.labels.numpy()
     np.testing.assert_array_equal(t_lab, j_lab)

@@ -30,7 +30,7 @@ torch.set_num_threads(2)
 def setup(scene):
     kw = dict(depth_min=scene.depth_min, depth_max=scene.depth_max)
     jc = jgeo.build_camera_set(list(scene.P), **kw)
-    tc = geo.build_camera_set(list(scene.P), **kw)
+    tc = geo.build_camera_set(list(scene.P), device="cpu", **kw)
     params = AlgorithmParams().with_depth_range(scene.depth_min,
                                                 scene.depth_max,
                                                 float(tc.f))
@@ -43,7 +43,8 @@ def test_plane_counts_match(scene, setup):
     assert sv.s_range_for_depths(2.0, 9.0, 0.125) == \
         jsv.s_range_for_depths(2.0, 9.0, 0.125)
     view_ids = (1, 2, 3, 4)
-    assert pm.svolume_plane_counts(tc, view_ids, H, W, params) == \
+    tparams = convert.algorithm_params(params)
+    assert pm.svolume_plane_counts(tc, view_ids, H, W, tparams) == \
         jpm.svolume_plane_counts(jc, view_ids, H, W, params)
     # Scene-shared counts with a budget small enough to coarsen the step.
     tight = params.__class__(**{**params.__dict__, "svolume_budget_mb": 1})
@@ -52,10 +53,11 @@ def test_plane_counts_match(scene, setup):
                                     depth_min=scene.depth_min,
                                     depth_max=scene.depth_max)
               for r in range(3)]
-    cams_t = [convert.camera_set(c) for c in cams_j]
+    cams_t = [convert.camera_set(c, "cpu") for c in cams_j]
     vids = [view_ids] * 3
     for p in (params, tight):
-        assert pm.svolume_plane_counts_shared(cams_t, vids, H, W, p) == \
+        assert pm.svolume_plane_counts_shared(
+            cams_t, vids, H, W, convert.algorithm_params(p)) == \
             jpm.svolume_plane_counts_shared(cams_j, vids, H, W, p)
 
 
@@ -68,7 +70,7 @@ def test_plane_scalars_match(scene, setup):
     jstats = jncc.precompute_ref_stats(jnp.asarray(scene.images[0]), jc,
                                        params)
     tstats = ncc.precompute_ref_stats(torch.as_tensor(scene.images[0]), tc,
-                                      params)
+                                      convert.algorithm_params(params))
     for a, b in zip(sv.plane_scalars(torch.as_tensor(n), torch.as_tensor(d),
                                      tstats),
                     jsv.plane_scalars(jnp.asarray(n), jnp.asarray(d),
@@ -82,7 +84,7 @@ def test_warp_plain_matches_gather_build(scene, cam_scale):
     kw = dict(cam_scale=cam_scale, depth_min=scene.depth_min,
               depth_max=scene.depth_max)
     jc = jgeo.build_camera_set(list(scene.P), **kw)
-    tc = geo.build_camera_set(list(scene.P), **kw)
+    tc = geo.build_camera_set(list(scene.P), device="cpu", **kw)
     imgs = scene.images
     if cam_scale == 2.0:
         imgs = np.asarray(jpm.downsample_2x(jnp.asarray(imgs)))

@@ -40,7 +40,7 @@ torch.set_num_threads(2)
 def setup(scene):
     jc = jgeo.build_camera_set(list(scene.P), depth_min=scene.depth_min,
                                depth_max=scene.depth_max)
-    tc = convert.camera_set(jc)
+    tc = convert.camera_set(jc, "cpu")
     params = AlgorithmParams(
         weak_text_num=25, hough_thr=12, min_line_length=12, max_line_gap=3,
         ransac_iters=2000, ransac_anneal_rounds=200, ransac_thr_base=0.005,
@@ -62,8 +62,10 @@ def setup(scene):
         ratio=jnp.asarray(rng.uniform(0.3, 1, (H, W)), jnp.float32),
         best_view=jnp.asarray(rng.integers(1, 5, (H, W)), jnp.int32))
     weak = wt.detect_weak_texture(scene.images[0], params, pyr_levels=1)
-    return dict(scene=scene, jc=jc, tc=tc, params=params, jstate=jstate,
-                tstate=convert.plane_state(jstate), weak=weak, H=H, W=W)
+    return dict(scene=scene, jc=jc, tc=tc, params=params,
+                tparams=convert.algorithm_params(params), jstate=jstate,
+                tstate=convert.plane_state(jstate, "cpu"), weak=weak, H=H,
+                W=W)
 
 
 def test_confidence_matches(setup):
@@ -73,7 +75,7 @@ def test_confidence_matches(setup):
         jnp.asarray(imgs), (1, 2, 3, 4), s["jc"], s["jstate"], s["params"])
     tconf, tlr, tdisp = tsar.confidence_stage(
         torch.as_tensor(imgs), (1, 2, 3, 4), s["tc"], s["tstate"],
-        s["params"])
+        s["tparams"])
     textured = ~s["scene"].weak_mask[0]
     for t, j in ((tconf, jconf), (tlr, jlr)):
         delta = np.abs(t.numpy() - np.asarray(j))
@@ -104,7 +106,7 @@ def test_wmf_mark_masks_match(setup):
         tr = wmf.wmf_mark_outliers(
             torch.as_tensor(gray), s["tstate"].normal, s["tstate"].d,
             torch.as_tensor(disp), torch.as_tensor(rel), it, s["tc"],
-            s["params"], chunk_rows=chunk).numpy()
+            s["tparams"], chunk_rows=chunk).numpy()
         assert (tr == jr).mean() >= 0.999, (it, (tr == jr).mean())
         assert 0.02 < (~jr).mean() < 0.9
         rel = jr
@@ -128,7 +130,7 @@ def test_wmf_fill_matches(setup):
             torch.as_tensor(gray), convert.tensor(normal, "cpu"),
             convert.tensor(d, "cpu"), torch.as_tensor(disp),
             torch.as_tensor(rel), torch.as_tensor(textured), it, s["tc"],
-            s["params"])
+            s["tparams"])
         jr = np.asarray(jr)
         assert (tr.numpy() == jr).mean() >= 0.999
         same = tr.numpy() == jr
@@ -205,7 +207,7 @@ def test_fill_fake_depth_finalize_border_match(setup):
         jnp.asarray(weak_region), params))
     tfake = tsar.fake_depth_stage(
         s["tc"], torch.as_tensor(planes), torch.as_tensor(labels).long(),
-        torch.as_tensor(weak_region), params).numpy()
+        torch.as_tensor(weak_region), s["tparams"]).numpy()
     np.testing.assert_allclose(tfake, jfake, atol=1e-4)
     np.testing.assert_allclose(
         tsar.border_consistency_check(weak, tfake, disp, s["tc"]),
@@ -218,7 +220,7 @@ def test_fill_fake_depth_finalize_border_match(setup):
     tst, trel, tdisp = tsar.fill_stage(
         s["tc"], s["tstate"], torch.as_tensor(planes),
         torch.as_tensor(labels).long(), torch.as_tensor(weak_region),
-        torch.as_tensor(rel), params)
+        torch.as_tensor(rel), s["tparams"])
     np.testing.assert_array_equal(trel.numpy(), np.asarray(jrel))
     for field in ("normal", "d", "cost"):
         np.testing.assert_allclose(getattr(tst, field).numpy(),

@@ -1,10 +1,11 @@
 """tsar-mvs-tpu ported to PyTorch with hand-written CUDA kernels for Hopper.
 
 The JAX package ``tsar_mvs_tpu`` is the reference; this package keeps its
-module names so each counterpart is found by path. It imports torch and
-never jax. It shares the JAX package's jax-free modules by import
-(``tsar_mvs_tpu.config``, ``tsar_mvs_tpu.utils.*``,
-``tsar_mvs_tpu.models.weak_texture``, ``tsar_mvs_tpu.eval``).
+module names so each counterpart is found by path. It imports torch,
+never jax, and nothing of ``tsar_mvs_tpu``: ``config``, ``eval``,
+``models/weak_texture`` and ``utils/*`` are its own copies of the JAX
+package's host-side modules (``convert`` carries parameter objects and
+state across for the tests that compare the two).
 
 The two TPU kernels become CUDA C++ under ``csrc/``: the s-volume NCC cost
 (``ops/cuda_ncc.py``) and the s-volume build (``ops/cuda_warp.py``). They

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels under ``csrc/``.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, ``build/tsar_mvs_tpu_torch/libtsar_kernels_<hash>.so`` at the
-root of the checkout, keyed by a hash of every file in ``csrc/``; the
-library is loaded with ctypes. Nothing is built from outside the checkout
+The sources compile with nvcc (one process per source, in parallel)
+into one shared library with a plain C interface,
+``build/tsar_mvs_tpu_torch/libtsar_kernels_<hash>.so`` at the root of the
+checkout, keyed by a hash of every file in ``csrc/``; the library is
+loaded with ctypes. Nothing is built from outside the checkout
 and nothing is built at import: the first kernel launch builds.
 
 Every C entry point takes pointers and the stream as ``void*`` and returns
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,15 +26,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tsar_mvs_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "tsar_svol_ncc": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F,
-                      _P, _P],
+    "tsar_svol_ncc_multiview": [
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F), _I,
+        _P, _I, _I, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "tsar_warp_build": [_P, _I, _I, _P, _F, _F, _I, _P, _P],
 }
 
@@ -72,20 +75,32 @@ def load_library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                                  capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            # One nvcc per source, all started together, then one link.
+            jobs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = os.path.join(tmp, src.stem + ".o")
+                jobs.append((obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs = [proc.communicate()[0] for _, proc in jobs]
+            BUILD_LOG = "".join(logs)
+            failed = [proc.returncode for _, proc in jobs
+                      if proc.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
                                    f"{BUILD_LOG}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+            lib_tmp = os.path.join(tmp, out.name)
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", lib_tmp, *(obj for obj, _ in jobs)],
+                capture_output=True, text=True)
+            BUILD_LOG += link.stdout + link.stderr
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):"
+                                   f"\n{BUILD_LOG}")
+            os.replace(lib_tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -93,6 +108,29 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def kernel_resources() -> list[str]:
+    """One "<kernel><template arguments>: N registers, M bytes spilled"
+    per compiled kernel, from ptxas's report in BUILD_LOG (empty when the
+    library was not built in this process)."""
+    out, name = [], None
+    for line in BUILD_LOG.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel)(\w*)",
+                          m.group(1))
+            name = (k.group(1) + "<" + ",".join(
+                re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \
+                else m.group(1)
+            spill = 0
+        elif "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill} bytes spilled")
+            name = None
+    return out
 
 
 def check(code: int, name: str) -> None:

@@ -26,7 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams, FusionParams
+from tsar_mvs_tpu_torch.config import AlgorithmParams, FusionParams
 
 
 def _alg_params(ns) -> AlgorithmParams:
@@ -180,9 +180,9 @@ def cmd_gipuma(argv: list[str]) -> int:
                                    write_vis=not ns.no_display,
                                    device=device)
     if ns.gt:
-        from tsar_mvs_tpu import eval as ev
-        from tsar_mvs_tpu.utils.dmb import read_dmb
-        from tsar_mvs_tpu.utils.synthetic import read_png_gray
+        from tsar_mvs_tpu_torch import eval as ev
+        from tsar_mvs_tpu_torch.utils.dmb import read_dmb
+        from tsar_mvs_tpu_torch.utils.synthetic import read_png_gray
         gt = read_dmb(ns.gt) / ns.gtDepth_divisionFactor
         occl = read_png_gray(ns.occl_mask) if ns.occl_mask else None
         r = ev.depth_error(result.depth, gt,
@@ -199,7 +199,7 @@ def cmd_gipuma(argv: list[str]) -> int:
 def _apply_bounding_volume(scene, ref_idx: int, bounding_folder: str):
     """Clamp the scene's depth range to the depth extent of the bounding
     box's 8 corners in the reference camera."""
-    from tsar_mvs_tpu.utils import scene_io
+    from tsar_mvs_tpu_torch.utils import scene_io
     bv = Path(bounding_folder)
     candidates = sorted(bv.glob("*.txt")) or [bv]
     bl, tr = scene_io.read_bounding_volume(candidates[0])
@@ -317,7 +317,7 @@ def cmd_synth(argv: list[str]) -> int:
     p.add_argument("--views", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     ns = p.parse_args(argv)
-    from tsar_mvs_tpu.utils.synthetic import make_scene
+    from tsar_mvs_tpu_torch.utils.synthetic import make_scene
     root = make_scene(height=ns.height, width=ns.width, num_views=ns.views,
                       seed=ns.seed).export(ns.out_dir)
     print(f"synthetic scene written to {root}")
@@ -339,11 +339,11 @@ def cmd_eval(argv: list[str]) -> int:
                    help="treat est/gt as .ply point clouds and report F1")
     p.add_argument("--threshold", type=float, default=0.02)
     ns = p.parse_args(argv)
-    from tsar_mvs_tpu import eval as ev
-    from tsar_mvs_tpu.utils.dmb import read_dmb
-    from tsar_mvs_tpu.utils.pfm import read_pfm
-    from tsar_mvs_tpu.utils.ply import read_ply
-    from tsar_mvs_tpu.utils.synthetic import read_png_gray
+    from tsar_mvs_tpu_torch import eval as ev
+    from tsar_mvs_tpu_torch.utils.dmb import read_dmb
+    from tsar_mvs_tpu_torch.utils.pfm import read_pfm
+    from tsar_mvs_tpu_torch.utils.ply import read_ply
+    from tsar_mvs_tpu_torch.utils.synthetic import read_png_gray
 
     if ns.fscore:
         r = ev.point_cloud_fscore(read_ply(ns.est)[0], read_ply(ns.gt)[0],

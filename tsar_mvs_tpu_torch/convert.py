@@ -1,14 +1,18 @@
 """numpy -> torch converters for state carried across from the JAX
 package: its CameraSet, PlaneState and RefStats fields and s-volume data,
 given as numpy arrays (or anything numpy converts), become the port's
-NamedTuples of tensors on a device. No jax is imported here; callers
-hand over arrays."""
+NamedTuples of tensors on a device, and its parameter dataclasses become
+the port's. No jax is imported here; callers hand over arrays and
+objects."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from tsar_mvs_tpu_torch.config import AlgorithmParams, FusionParams
 from tsar_mvs_tpu_torch.geometry import CameraSet
 from tsar_mvs_tpu_torch.models.patchmatch import PlaneState
 from tsar_mvs_tpu_torch.ops.ncc import RefStats
@@ -30,24 +34,42 @@ def _fields(cls, src, device):
     return cls(**{f: tensor(getattr(src, f), device) for f in cls._fields})
 
 
-def camera_set(src, device="cpu") -> CameraSet:
+def camera_set(src, device) -> CameraSet:
     """A CameraSet from any object with CameraSet's field names."""
     return _fields(CameraSet, src, device)
 
 
-def plane_state(src, device="cpu") -> PlaneState:
+def plane_state(src, device) -> PlaneState:
     """A PlaneState (normal, d, cost, ratio, best_view)."""
     return _fields(PlaneState, src, device)
 
 
-def ref_stats(src, device="cpu") -> RefStats:
+def ref_stats(src, device) -> RefStats:
     return _fields(RefStats, src, device)
 
 
-def svolume(src, device="cpu") -> SVolume:
+def svolume(src, device) -> SVolume:
     """An SVolume from the JAX SVolume's data (per-view bf16 volumes),
     s_lo and inv_ds."""
     return SVolume(data=tuple(tensor(v, device, torch.bfloat16)
                               for v in src.data),
                    s_lo=float(np.asarray(src.s_lo)),
                    inv_ds=tuple(float(np.asarray(x)) for x in src.inv_ds))
+
+
+def _params(cls, src):
+    """`cls` from the same-named fields of the dataclass `src`; fields the
+    port does not have (those only the JAX package's TPU paths read) are
+    dropped."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in dataclasses.asdict(src).items()
+                  if k in names})
+
+
+def algorithm_params(src) -> AlgorithmParams:
+    """The port's AlgorithmParams from the JAX package's (or the port's)."""
+    return _params(AlgorithmParams, src)
+
+
+def fusion_params(src) -> FusionParams:
+    return _params(FusionParams, src)

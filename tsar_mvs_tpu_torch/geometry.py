@@ -100,8 +100,8 @@ class CameraSet(NamedTuple):
 
 def build_camera_set(P_list, cam_scale: float = 1.0,
                      depth_min: float = -1.0, depth_max: float = -1.0,
-                     rebase: bool = True,
-                     device: torch.device | str = "cpu") -> CameraSet:
+                     rebase: bool = True, *,
+                     device: torch.device | str) -> CameraSet:
     """Decompose, rescale and rebase projection matrices so that view 0
     becomes K[I|0] (float64 on the host, as the JAX package does), then
     pack float32 tensors on `device`. Every view's P is rebuilt with the

@@ -1,0 +1,604 @@
+"""Times of the two CUDA kernels at every shape the main path launches
+them at, beside the least time the card could take, and PatchMatch's
+seconds split into kernel B1, kernel B2 and the torch code around them.
+
+    python -m tsar_mvs_tpu_torch.kernel_times render <scene_dir>
+    python -m tsar_mvs_tpu_torch.kernel_times time <scene_dir> [--json OUT]
+
+`render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
+pair.txt) and view 0's ground truth (`gt_view0.npz`) once; the host render
+takes minutes, so a scene on disk is reused. `time` needs a CUDA device.
+It measures through the functions the main path calls
+(`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
+`patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
+functions on its own scene.
+
+Shapes (levels (4, 2, 1) of a 1344x2048 view with 7 sources): kernel B1
+on each level's packed grid with the propagation pass's candidate count
+(8 on the coarsest level, 4 on the lifted ones) and the refinement pass's
+(1), on a random plane field (what random initialisation evaluates) and
+on a smooth one (the ground-truth planes with a refine-scale
+perturbation: what propagation and refinement evaluate once the state
+has converged), and on the coarsest level's dense grid (initialisation);
+kernel B2 on each level's largest view volume. Kernel B1 has one inner
+loop for the default 11x11 stride-2 window and a generic one for every
+other window; `time_b1_windows` times both on the full-resolution smooth
+field (9x9 and 13x13 beside the default) per window sample.
+
+The bound of a shape is the larger of bytes / 3.35 TB/s (each input read
+and each output written once; of the volume, the bytes this plane field
+touches) and operations / 67 TFLOP/s (float32 outside the tensor cores),
+the published peaks of an H100 SXM.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+H, W, VIEWS = 1344, 2048, 8
+LEVELS = (4, 2, 1)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# Float operations per window sample (plane coordinate 6, clamp and
+# bracket 4, interpolation and centring 6, moments 5) and per candidate
+# epilogue of kernel B1; per voxel of kernel B2 (warp 9, clamp and
+# split 8, bilinear 9).
+B1_FLOPS_PER_SAMPLE = 21
+B1_FLOPS_PER_EPILOGUE = 15
+B2_FLOPS_PER_VOXEL = 26
+# Windows (box_hsize, box_vsize; stride 2) of `time_b1_windows`: the
+# default between two that take kernel B1's generic loop.
+WINDOWS = ((9, 9), (11, 11), (13, 13))
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, repeats: int, warmup: int = 1) -> float:
+    """Mean device milliseconds per call over `repeats` (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def device_times(fn) -> dict | None:
+    """Device microseconds and launch counts of one call of `fn`, by
+    kernel: {"b1": [us, n], "b2": [us, n], "other": [us, n], "b1_each_us":
+    B1's launches one by one in launch order} from torch.profiler, or None
+    when the profiler reports no device activity (it sometimes drops a
+    short trace: two attempts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups = {"b1": [0.0, 0], "b2": [0.0, 0], "other": [0.0, 0]}
+        b1_each = []
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            key = ("b1" if "svol_ncc" in e.name
+                   else "b2" if "warp_build" in e.name else "other")
+            groups[key][0] += e.time_range.elapsed_us()
+            groups[key][1] += 1
+            if key == "b1":
+                b1_each.append((e.time_range.start,
+                                e.time_range.elapsed_us()))
+        if sum(g[1] for g in groups.values()) > 0:
+            groups["b1_each_us"] = [us for _, us in sorted(b1_each)]
+            return groups
+    return None
+
+
+def render(scene_dir: Path) -> None:
+    """The synthetic 2K scene and view 0's ground truth, on disk."""
+    import numpy as np
+    from tsar_mvs_tpu_torch.utils.synthetic import make_scene
+    scene = make_scene(height=H, width=W, num_views=VIEWS, seed=0)
+    scene.export(scene_dir)
+    np.savez_compressed(scene_dir / "gt_view0.npz",
+                        depth=scene.depth[0].astype(np.float32),
+                        normal_world=scene.normal_world[0]
+                        .astype(np.float16))
+
+
+def level_inputs(scene, params, li: int, dev) -> dict:
+    """What `run_patchmatch` builds on pyramid level `li` for view 0: the
+    cameras, the level's parameters and images, the reference statistics
+    and the s-volumes of all sources at the scene's plane counts."""
+    import torch
+    from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch.ops import ncc
+    from tsar_mvs_tpu_torch.ops import svolume as sv
+    level = LEVELS[li]
+    order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
+    cams = geo.build_camera_set([scene.P[i] for i in order],
+                                cam_scale=float(level) * params.cam_scale,
+                                depth_min=scene.depth_min,
+                                depth_max=scene.depth_max, device=dev)
+    params_s = params.with_depth_range(scene.depth_min, scene.depth_max,
+                                       float(cams.f))
+    imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
+                           device=dev)
+    fac = 1
+    while fac < level:
+        imgs, fac = pm.downsample_2x(imgs), fac * 2
+    counts = pipeline.scene_plane_counts(scene, params, LEVELS,
+                                         len(view_ids))[li]
+    idx = torch.as_tensor(list(view_ids), dtype=torch.int64, device=dev)
+    s_lo, s_hi = sv.s_range_for_depths(params_s.depth_min,
+                                       params_s.depth_max,
+                                       params_s.svolume_margin)
+    vol = sv.build_svolume(imgs[idx], cams.A[idx], cams.b[idx], s_lo, s_hi,
+                           counts)
+    stats = ncc.precompute_ref_stats(imgs[0], cams, params_s)
+    return dict(level=level, cams=cams, params=params_s, imgs=imgs,
+                counts=counts, ids=idx, s_lo=s_lo, s_hi=s_hi, vol=vol,
+                stats=stats)
+
+
+def random_field(lv: dict, C: int, gen):
+    """C random planes per pixel: normals on the camera-facing
+    hemisphere, depths uniform in the scene's range."""
+    import torch
+    from tsar_mvs_tpu_torch import geometry as geo
+    cams, stats = lv["cams"], lv["stats"]
+    Hs, Ws = lv["imgs"].shape[1:]
+    dev = lv["imgs"].device
+    n = geo.normalize(torch.randn((C, Hs, Ws, 3), generator=gen,
+                                  device=dev))
+    n = geo.hemisphere_flip(n, geo.view_vectors(cams, Hs, Ws))
+    lo, hi = float(cams.depth_min) * 1.05, float(cams.depth_max) * 0.95
+    depth = lo + (hi - lo) * torch.rand((C, Hs, Ws), generator=gen,
+                                        device=dev)
+    return n, geo.plane_d_from_depth(n, stats.rays, depth)
+
+
+def smooth_field(lv: dict, gt: dict, C: int, gen):
+    """C planes per pixel near the ground truth: the true depth and
+    normal of view 0 at this level, each perturbed as the refinement pass
+    perturbs at a middle scale (disparity +-0.5% of the range, normal
+    +-1/16)."""
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    cams, stats, params = lv["cams"], lv["stats"], lv["params"]
+    Hs, Ws = lv["imgs"].shape[1:]
+    dev = lv["imgs"].device
+    step = lv["level"]
+    depth = np.asarray(gt["depth"], np.float32)[::step, ::step][:Hs, :Ws]
+    depth = np.where(np.isfinite(depth), depth,
+                     np.float32(np.median(depth[np.isfinite(depth)])))
+    normal = np.asarray(gt["normal_world"],
+                        np.float32)[::step, ::step][:Hs, :Ws]
+    state = pm.state_from_prior(torch.as_tensor(depth, device=dev),
+                                torch.as_tensor(normal, device=dev), cams)
+    xx, yy = geo.pixel_grid(Hs, Ws, dev)
+    depth0 = geo.depth_from_plane(cams, state.normal, state.d, xx, yy)
+    disp = geo.disparity_depth(cams.f, cams.baseline, depth0)
+    dz = params.max_disparity * 0.005
+    disp = torch.clamp(
+        disp + dz * (2.0 * torch.rand((C, Hs, Ws), generator=gen,
+                                      device=dev) - 1.0),
+        params.min_disparity, params.max_disparity)
+    dn = (2.0 * torch.rand((C, Hs, Ws, 3), generator=gen, device=dev)
+          - 1.0) / 16.0
+    n = geo.hemisphere_flip(geo.normalize(state.normal + dn),
+                            geo.view_vectors(cams, Hs, Ws))
+    return n, geo.plane_d_from_depth(
+        n, stats.rays, geo.disparity_depth(cams.f, cams.baseline, disp))
+
+
+def volume_bytes_touched(lv: dict, s0, sx, sy, parity) -> int:
+    """Bytes of the s-volumes that a cost evaluation of these plane
+    scalars reads, each voxel counted once."""
+    import torch
+    from tsar_mvs_tpu_torch.ops import ncc
+    params, vol = lv["params"], lv["vol"]
+    Hc, Wc = s0.shape[-2:]
+    dev = s0.device
+    yy = torch.arange(Hc, device=dev)[:, None]
+    xx = torch.arange(Wc, device=dev)[None, :].expand(Hc, Wc)
+    if parity is not None:
+        xx = 2 * xx + (parity + yy) % 2
+    total = 0
+    for v, data in enumerate(vol.data):
+        S, Hv, Wv = data.shape
+        seen = torch.zeros(S * Hv * Wv, dtype=torch.bool, device=dev)
+        for (i, j) in ncc.window_offsets(params):
+            t = (s0 + float(i) * sx + float(j) * sy - vol.s_lo) \
+                * vol.inv_ds[v]
+            finite = torch.isfinite(t)
+            t = torch.clamp(torch.where(finite, t, 0.0), 0.0, float(S - 1))
+            k0 = torch.floor(torch.clamp(t, max=float(S - 2))).to(
+                torch.int64)
+            pix = (torch.clamp(yy + j, 0, Hv - 1) * Wv
+                   + torch.clamp(xx + i, 0, Wv - 1))
+            idx = (k0 * (Hv * Wv) + pix)[finite]
+            seen[idx] = True
+            seen[idx + Hv * Wv] = True
+        total += 2 * int(seen.sum())
+        del seen
+    return total
+
+
+def b1_bound(lv: dict, s0, sx, sy, parity) -> dict:
+    """Least milliseconds for one multi-view cost evaluation."""
+    from tsar_mvs_tpu_torch.ops import ncc
+    C = s0.shape[0]
+    Hc, Wc = s0.shape[-2:]
+    O = len(ncc.window_offsets(lv["params"]))
+    V = len(lv["vol"].data)
+    px = Hc * Wc
+    vol_bytes = volume_bytes_touched(lv, s0, sx, sy, parity)
+    # weights and centred reference, four statistics, three plane
+    # scalars in and cost, ratio, best view out per candidate.
+    nbytes = px * (8 * O + 16 + 24 * C) + vol_bytes
+    flops = px * V * C * (B1_FLOPS_PER_SAMPLE * O + B1_FLOPS_PER_EPILOGUE)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "volume_bytes": vol_bytes, "flops": flops,
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def b1_fields(lv: dict, gt: dict):
+    """(label, C, parity, normal, d) for every B1 shape of this level."""
+    import torch
+    from tsar_mvs_tpu_torch.ops import checkerboard as cb
+    gen = torch.Generator(device=lv["imgs"].device).manual_seed(7)
+    coarsest = lv["level"] == LEVELS[0]
+    for C in ((8, 1) if coarsest else (4, 1)):
+        for label, make in (("smooth", smooth_field),
+                            ("random", random_field)):
+            n, d = (make(lv, gt, C, gen) if make is smooth_field
+                    else make(lv, C, gen))
+            yield (label, C, 0, cb.parity_compress_vec(n, 0),
+                   cb.parity_compress(d, 0))
+    if coarsest:
+        n, d = random_field(lv, 1, gen)
+        yield "random", 1, None, n[0], d[0]
+
+
+def agreement(mk, mp) -> dict:
+    """Largest differences of two MultiviewCost results of one shape."""
+    return {"max_abs_err": float((mk.cost - mp.cost).abs().max()),
+            "ratio_max_abs_err": float((mk.ratio - mp.ratio).abs().max()),
+            # A tie (ratio 1) may name either view.
+            "best_view_mismatches": int(
+                ((mk.best_view != mp.best_view) & (mp.ratio != 1.0)).sum())}
+
+
+def time_b1_level(lv: dict, gt: dict) -> list[dict]:
+    """Every B1 shape of one level: evaluation ms (CUDA events around
+    `multiview_cost_svolume`), the kernel's own device ms and launches
+    inside it (profiler), the plain version's ms and the bound."""
+    import torch
+    from tsar_mvs_tpu_torch.ops import cuda_ncc, ncc
+    from tsar_mvs_tpu_torch.ops import svolume as sv
+    vol = lv["vol"]
+    stats_by = {None: lv["stats"], 0: ncc.compress_stats(lv["stats"], 0)}
+    out = []
+    for label, C, parity, n, d in b1_fields(lv, gt):
+        st = stats_by[parity]
+
+        def evaluate():
+            return sv.multiview_cost_svolume(vol, lv["ids"], n, d, st,
+                                             lv["params"], parity)
+
+        s0, sx, sy = sv.plane_scalars(n, d, st)
+        s0, sx, sy = (a.reshape(-1, *a.shape[-2:]) for a in (s0, sx, sy))
+        res = {"level": lv["level"], "grid": list(s0.shape[-2:]), "C": C,
+               "parity": parity, "field": label,
+               "planes": list(lv["counts"]),
+               "ms": time_ms(evaluate, 10, warmup=2)}
+        dt = device_times(evaluate)
+        res["kernel_ms"] = None if dt is None else dt["b1"][0] / 1e3
+        res["kernel_launches"] = None if dt is None else dt["b1"][1]
+        res["other_kernels_ms"] = None if dt is None else dt["other"][0] / 1e3
+
+        def plain_eval():
+            return cuda_ncc.multiview_cost_plain(
+                vol.data, vol.s_lo, vol.inv_ds, lv["ids"], s0, sx, sy, st,
+                lv["params"], parity)
+
+        res["plain_ms"] = time_ms(plain_eval, 1, warmup=0)
+        res.update(agreement(evaluate(), plain_eval()))
+        res.update(b1_bound(lv, s0, sx, sy, parity))
+        res["library_ms"] = None
+        out.append(res)
+        print(f"B1 shape: {json.dumps(res)}", flush=True)
+    return out
+
+
+def time_b1_windows(lv: dict, gt: dict) -> list[dict]:
+    """Kernel B1 on this level's packed grid under each window of
+    WINDOWS, smooth field, C = 1 and 4: evaluation ms, picoseconds per
+    window sample (offset, view, candidate and pixel) and the agreement
+    with the plain version. Only the default window takes the unrolled
+    loop."""
+    import dataclasses
+    import torch
+    from tsar_mvs_tpu_torch.ops import checkerboard as cb
+    from tsar_mvs_tpu_torch.ops import cuda_ncc, ncc
+    from tsar_mvs_tpu_torch.ops import svolume as sv
+    vol = lv["vol"]
+    gen = torch.Generator(device=lv["imgs"].device).manual_seed(7)
+    fields = {}
+    for C in (1, 4):
+        n, d = smooth_field(lv, gt, C, gen)
+        fields[C] = (cb.parity_compress_vec(n, 0), cb.parity_compress(d, 0))
+    out = []
+    for box in WINDOWS:
+        params = dataclasses.replace(lv["params"], box_hsize=box[0],
+                                     box_vsize=box[1])
+        st = ncc.compress_stats(
+            ncc.precompute_ref_stats(lv["imgs"][0], lv["cams"], params), 0)
+        O = len(ncc.window_offsets(params))
+        for C, (n, d) in fields.items():
+            def evaluate():
+                return sv.multiview_cost_svolume(vol, lv["ids"], n, d, st,
+                                                 params, 0)
+
+            ms = time_ms(evaluate, 10, warmup=2)
+            samples = O * len(vol.data) * d.numel()
+            plain = cuda_ncc.multiview_cost_plain(
+                vol.data, vol.s_lo, vol.inv_ds, lv["ids"],
+                *sv.plane_scalars(n, d, st), st, params, 0)
+            res = {"level": lv["level"], "window": list(box), "offsets": O,
+                   "C": C, "ms": ms, "ps_per_sample": ms * 1e9 / samples,
+                   **agreement(evaluate(), plain)}
+            del plain
+            out.append(res)
+            print(f"B1 window: {json.dumps(res)}", flush=True)
+        del st
+    return out
+
+
+def time_b2_level(lv: dict) -> dict:
+    """B2 on the level's largest view volume: kernel, plain version,
+    bound, and `grid_sample` on precomputed coordinates as the library
+    call (float32 in and out; it leaves out the coordinate arithmetic and
+    the rounding to bf16)."""
+    import torch
+    from tsar_mvs_tpu_torch.ops import cuda_warp
+    counts = lv["counts"]
+    slot = max(range(len(counts)), key=lambda k: counts[k])
+    S = int(counts[slot])
+    ds = (lv["s_hi"] - lv["s_lo"]) / (S - 1)
+    v = int(lv["ids"][slot])
+    src, A, b = lv["imgs"][v], lv["cams"].A[v], lv["cams"].b[v]
+    Hs, Ws = src.shape
+
+    def kernel():
+        return cuda_warp.build_svolume_view(src, A, b, lv["s_lo"], ds, S)
+
+    def plain_build():
+        return cuda_warp.build_svolume_view_plain(src, A, b, lv["s_lo"], ds,
+                                                  S)
+
+    res = {"level": lv["level"], "grid": [Hs, Ws], "planes": S,
+           "ms": time_ms(kernel, 5), "plain_ms": time_ms(plain_build, 1)}
+    res["max_abs_err"] = float(
+        (kernel().float() - plain_build().float()).abs().max())
+
+    dev = src.device
+    xx = torch.arange(Ws, dtype=torch.float32, device=dev)[None, None, :]
+    yy = torch.arange(Hs, dtype=torch.float32, device=dev)[None, :, None]
+    s = (lv["s_lo"] + ds * torch.arange(S, dtype=torch.float32,
+                                        device=dev))[:, None, None]
+    u = [A[r, 0] * xx + A[r, 1] * yy + A[r, 2] for r in range(3)]
+    inv_w = 1.0 / (u[2] - b[2] * s)
+    grid = torch.stack([(u[0] - b[0] * s) * inv_w * (2.0 / (Ws - 1)) - 1.0,
+                        (u[1] - b[1] * s) * inv_w * (2.0 / (Hs - 1)) - 1.0],
+                       dim=-1).reshape(1, S * Hs, Ws, 2)
+    del inv_w, u
+    img = src.to(torch.bfloat16).float()[None, None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    res["library_ms"] = time_ms(library, 3)
+    del grid
+    nbytes = 2 * S * Hs * Ws + 2 * Hs * Ws + 48
+    flops = B2_FLOPS_PER_VOXEL * S * Hs * Ws
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    res.update({"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
+                "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    print(f"B2 shape: {json.dumps(res)}", flush=True)
+    return res
+
+
+def launch_plan(scene, params) -> list[dict]:
+    """Cost evaluations and volume builds of the main path per level, from
+    the schedule `run_patchmatch_pyramid` follows: per iteration and
+    parity one propagation evaluation (C = banks) and one refinement
+    evaluation per refine scale (C = 1); one dense evaluation for the
+    random initialisation of the coarsest level; one build per source."""
+    from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
+    iters = pm.iteration_schedule(params, len(LEVELS))
+    plan = []
+    for li, level in enumerate(LEVELS):
+        cams = geo.build_camera_set([scene.P[i] for i in order],
+                                    cam_scale=float(level) * params.cam_scale,
+                                    depth_min=scene.depth_min,
+                                    depth_max=scene.depth_max, device="cpu")
+        params_s = pm.level_params(params, li, float(cams.f),
+                                   scene.depth_min, scene.depth_max)
+        scales = len(pm.refine_schedule(params_s))
+        plan.append({"level": level, "banks": pm.prop_bank_count(params_s),
+                     "iterations": iters[li], "scales": scales,
+                     "propagation": 2 * iters[li],
+                     "refinement": 2 * iters[li] * scales,
+                     "init": 1 if li == 0 else 0,
+                     "builds": len(view_ids)})
+    return plan
+
+
+def launch_sequence(plan: list[dict]) -> list[tuple[int, str]]:
+    """(level, kind) of every cost evaluation of the main path in launch
+    order; kind is "init", "propagation", "refine_widest" (each pass's
+    first, widest refine scale) or "refine"."""
+    seq = []
+    for p in plan:
+        seq += [(p["level"], "init")] * p["init"]
+        half_pass = ([(p["level"], "propagation")]
+                     + [(p["level"], "refine_widest")]
+                     + [(p["level"], "refine")] * (p["scales"] - 1))
+        seq += half_pass * (2 * p["iterations"])
+    return seq
+
+
+def b1_seconds_by_kind(plan: list[dict], each_us: list[float]) -> dict:
+    """Kernel B1's device seconds on the main path, summed by level and
+    kind of evaluation, from its launches' times in launch order."""
+    seq = launch_sequence(plan)
+    if len(seq) != len(each_us):
+        raise ValueError(f"{len(each_us)} B1 launches for a plan of "
+                         f"{len(seq)} evaluations")
+    out: dict[str, list] = {}
+    for (level, kind), us in zip(seq, each_us):
+        acc = out.setdefault(f"level {level} {kind}", [0.0, 0])
+        acc[0] += us / 1e6
+        acc[1] += 1
+    return out
+
+
+def pyramid_runner(scene, params, dev):
+    """A function that runs view 0's `run_patchmatch_pyramid` as
+    `process_view` does, from a generator seeded 0."""
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
+    imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
+                           device=dev)
+    planes = pipeline.scene_plane_counts(scene, params, LEVELS,
+                                         len(view_ids))
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return pm.run_patchmatch_pyramid(
+            gen, imgs, view_ids, [scene.P[i] for i in order], params,
+            levels=LEVELS,
+            iterations_per_level=pm.iteration_schedule(params, len(LEVELS)),
+            depth_min=scene.depth_min, depth_max=scene.depth_max,
+            svol_planes_per_level=planes)
+    return run
+
+
+def patchmatch_split(scene, params, dev) -> dict:
+    """Seconds of one `run_patchmatch_pyramid` of view 0 (host clock,
+    synchronised, after a warm-up run) and, from a profiled third run,
+    the device seconds inside it of kernel B1, of kernel B2 and of every
+    other kernel and copy, with their launch counts."""
+    import torch
+    run = pyramid_runner(scene, params, dev)
+    run()
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    dt = device_times(run)
+    res = {"seconds": seconds}
+    if dt is None:
+        res["device"] = None
+    else:
+        res["b1_each_us"] = dt.pop("b1_each_us")
+        res["device"] = {k: {"seconds": us / 1e6, "launches": n}
+                         for k, (us, n) in dt.items()}
+        busy = sum(us for us, _ in dt.values()) / 1e6
+        res["device_busy_s"] = busy
+        res["rest_s"] = min(seconds) - dt["b1"][0] / 1e6 - dt["b2"][0] / 1e6
+    print("patchmatch split: "
+          + json.dumps({k: v for k, v in res.items() if k != "b1_each_us"}),
+          flush=True)
+    return res
+
+
+def time_all(scene, gt: dict, dev) -> dict:
+    """Every B1 and B2 shape, level by level (one level's volumes live at
+    a time), B1's windows on the last level, then the PatchMatch split."""
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    params = pipeline.default_params_for_scene(scene)
+    b1, b2, windows = [], [], []
+    for li in range(len(LEVELS)):
+        lv = level_inputs(scene, params, li, dev)
+        b2.append(time_b2_level(lv))
+        b1.extend(time_b1_level(lv, gt))
+        if li == len(LEVELS) - 1:
+            windows = time_b1_windows(lv, gt)
+        del lv
+        torch.cuda.empty_cache()
+    split = patchmatch_split(scene, params, dev)
+    return {"b1": b1, "b2": b2, "b1_windows": windows, "patchmatch": split}
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
+    p.add_argument("command", choices=("render", "time"))
+    p.add_argument("scene_dir")
+    p.add_argument("--json", default=None, help="write the results here")
+    ns = p.parse_args(argv)
+    scene_dir = Path(ns.scene_dir)
+    if ns.command == "render":
+        render(scene_dir)
+        return 0
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from tsar_mvs_tpu_torch import pipeline
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    scene = pipeline.load_scene(scene_dir)
+    with np.load(scene_dir / "gt_view0.npz") as z:
+        gt = {"depth": z["depth"], "normal_world": z["normal_world"]}
+    res = time_all(scene, gt, dev)
+    res["card"] = card
+    if ns.json:
+        Path(ns.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(ns.json).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import FusionParams
+from tsar_mvs_tpu_torch.config import FusionParams
 from tsar_mvs_tpu_torch import geometry as geo
 
 

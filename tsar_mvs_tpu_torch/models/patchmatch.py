@@ -22,7 +22,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops import ncc
@@ -393,6 +393,21 @@ def upsample_state_2x(state: PlaneState, cams_fine: geo.CameraSet,
                       best_view=up(state.best_view))
 
 
+def level_params(params: AlgorithmParams, li: int, f: float,
+                 depth_min: float, depth_max: float) -> AlgorithmParams:
+    """The parameters of pyramid level `li` (0 the coarsest) with focal
+    length `f`: lifted levels narrow the first refine scale
+    (refine_dz0_frac_fine) and use prop_banks_fine banks; every level
+    derives its disparity range from its own focal length."""
+    if li > 0:
+        params = dataclasses.replace(
+            params,
+            refine_dz0_frac=min(params.refine_dz0_frac,
+                                params.refine_dz0_frac_fine),
+            prop_banks=min(params.prop_banks, params.prop_banks_fine))
+    return params.with_depth_range(depth_min, depth_max, f)
+
+
 def run_patchmatch_pyramid(generator: torch.Generator, imgs: torch.Tensor,
                            view_ids: tuple[int, ...], P_list,
                            params: AlgorithmParams,
@@ -428,15 +443,7 @@ def run_patchmatch_pyramid(generator: torch.Generator, imgs: torch.Tensor,
                                       cam_scale=float(s) * params.cam_scale,
                                       depth_min=dmin, depth_max=dmax,
                                       device=imgs.device)
-        params_s = dataclasses.replace(
-            params,
-            refine_dz0_frac=(params.refine_dz0_frac if li == 0
-                             else min(params.refine_dz0_frac,
-                                      params.refine_dz0_frac_fine)),
-            prop_banks=(params.prop_banks if li == 0
-                        else min(params.prop_banks,
-                                 params.prop_banks_fine)),
-        ).with_depth_range(dmin, dmax, float(cams_s.f))
+        params_s = level_params(params, li, float(cams_s.f), dmin, dmax)
         imgs_s = pyr[s]
         if state is not None:
             state = upsample_state_2x(state, cams_s, *imgs_s.shape[1:])

@@ -18,8 +18,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
-from tsar_mvs_tpu.models.weak_texture import WeakTexture
+from tsar_mvs_tpu_torch.config import AlgorithmParams
+from tsar_mvs_tpu_torch.models.weak_texture import WeakTexture
 from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.models import ransac
 from tsar_mvs_tpu_torch.models.patchmatch import PlaneState, depth_map

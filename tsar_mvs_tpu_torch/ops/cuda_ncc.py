@@ -1,31 +1,45 @@
-"""Kernel B1: bilaterally weighted NCC of candidate planes against one
-source view's s-volume.
+"""Kernel B1: bilaterally weighted NCC of candidate planes against the
+source views' s-volumes, aggregated over the views.
 
-``svolume_cost`` launches ``csrc/ncc.cu`` on CUDA tensors and runs
-``svolume_cost_plain`` on CPU tensors. Both evaluate, per pixel of the
-dense grid (parity None) or of one packed parity class (H, W/2), the cost
-that ``tsar_mvs_tpu.ops.svolume.svolume_cost_ab`` defines: each window
-sample linearly interpolates the two s-planes bracketing its plane
-coordinate at the edge-clamped dense offset pixel, accumulated centred on
-the reference centre pixel. A candidate whose plane coordinate is
-non-finite at any offset (d = 0 padding) costs cost_max. This replaces the
-TPU kernel ``tsar_mvs_tpu/ops/pallas_ncc.py::_svol_ncc_kernel``.
+``multiview_cost`` launches ``csrc/ncc.cu`` on CUDA tensors, once for all
+views and up to MAX_C candidates, and runs ``multiview_cost_plain`` on
+CPU tensors. Per view both evaluate, per pixel of the dense grid (parity
+None) or of one packed parity class (H, W/2), the cost that
+``tsar_mvs_tpu.ops.svolume.svolume_cost_ab`` defines: each window sample
+linearly interpolates the two s-planes bracketing its plane coordinate at
+the edge-clamped dense offset pixel, accumulated centred on the reference
+centre pixel. A candidate whose plane coordinate is non-finite at any
+offset (d = 0 padding) costs cost_max. Over the views both keep the
+running best and second-best cost (``ncc.aggregate_streaming``): cost,
+best / second ratio and the best view's id. This replaces the TPU kernel
+``tsar_mvs_tpu/ops/pallas_ncc.py::_svol_ncc_kernel`` and the per-view loop
+around it.
 """
 
 from __future__ import annotations
 
+import ctypes
+from collections import Counter
+from typing import Sequence
+
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
 from tsar_mvs_tpu_torch import _build
-from tsar_mvs_tpu_torch.ops.ncc import RefStats, ncc_epilogue, window_offsets
+from tsar_mvs_tpu_torch.config import AlgorithmParams
+from tsar_mvs_tpu_torch.ops.ncc import (MultiviewCost, RefStats,
+                                        aggregate_streaming, ncc_epilogue,
+                                        window_offsets)
 
-# Kernel launches since the last reset (read by chip_smoke.py).
+# Kernel launches since the last reset (read by chip_smoke.py), in all and
+# by (grid rows, grid columns, candidates of the launch).
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
-# Candidates per launch: the kernel keeps each candidate's moments in
-# registers.
+# Candidates per launch (the kernel keeps each candidate's moments and
+# running top-2 in registers) and source views per launch (its view table
+# is a kernel argument).
 MAX_C = 8
+MAX_V = 32
 
 
 def _dense_columns(Hc: int, Wc: int, parity: int | None,
@@ -73,28 +87,51 @@ def svolume_cost_plain(vol: torch.Tensor, s_lo: float, inv_ds: float,
     return torch.where(bad, params.cost_max, cost)
 
 
-def svolume_cost(vol: torch.Tensor, s_lo: float, inv_ds: float,
-                 s0: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
-                 stats: RefStats, params: AlgorithmParams,
-                 parity: int | None) -> torch.Tensor:
-    """Cost of (..., Hc, Wc) candidate plane scalars against one view's
-    dense (S, H, W) bf16 volume. CUDA tensors launch the kernel (one launch
-    per block of up to MAX_C candidates); CPU tensors run the plain
-    version."""
+def multiview_cost_plain(vols: Sequence[torch.Tensor], s_lo: float,
+                         inv_ds: Sequence[float], ids: torch.Tensor,
+                         s0: torch.Tensor, sx: torch.Tensor,
+                         sy: torch.Tensor, stats: RefStats,
+                         params: AlgorithmParams,
+                         parity: int | None) -> MultiviewCost:
+    """Plain PyTorch multi-view cost: the per-view plain costs streamed
+    through the top-2 aggregation."""
+    per_view = [lambda v=v: svolume_cost_plain(vols[v], s_lo, inv_ds[v], s0,
+                                               sx, sy, stats, params, parity)
+                for v in range(len(vols))]
+    return aggregate_streaming(per_view, ids)
+
+
+def multiview_cost(vols: Sequence[torch.Tensor], s_lo: float,
+                   inv_ds: Sequence[float], ids: torch.Tensor,
+                   s0: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                   stats: RefStats, params: AlgorithmParams,
+                   parity: int | None) -> MultiviewCost:
+    """Aggregated cost of (..., Hc, Wc) candidate plane scalars against
+    the views' dense (S_v, H, W) bf16 volumes; ids (V,) are the view ids
+    reported in best_view. CUDA tensors launch the kernel (one launch per
+    block of up to MAX_C candidates, all views inside); CPU tensors run
+    the plain version."""
     if not s0.is_cuda:
-        return svolume_cost_plain(vol, s_lo, inv_ds, s0, sx, sy, stats,
-                                  params, parity)
+        return multiview_cost_plain(vols, s_lo, inv_ds, ids, s0, sx, sy,
+                                    stats, params, parity)
     global LAUNCHES
-    S, H, W = vol.shape
+    V = len(vols)
+    if not 1 <= V <= MAX_V or len(inv_ds) != V or ids.shape != (V,):
+        raise ValueError(f"multiview_cost: 1 to {MAX_V} views with one "
+                         f"inv_ds and one id each, got {V}")
+    H, W = vols[0].shape[-2:]
     Hc, Wc = s0.shape[-2:]
     lead = s0.shape[:-2]
-    if vol.dtype != torch.bfloat16 or not vol.is_contiguous():
-        raise TypeError("svolume_cost: vol must be contiguous bfloat16")
-    if S < 2:
-        raise ValueError("svolume_cost: the volume needs >= 2 planes")
+    for vol in vols:
+        if vol.dtype != torch.bfloat16 or not vol.is_contiguous():
+            raise TypeError("multiview_cost: volumes must be contiguous "
+                            "bfloat16")
+        if vol.dim() != 3 or vol.shape[0] < 2 or vol.shape[1:] != (H, W):
+            raise ValueError("multiview_cost: volumes are (S >= 2, H, W) "
+                             "of one image size")
     expect = (H, W) if parity is None else (H, W // 2)
     if (Hc, Wc) != expect or sx.shape != s0.shape or sy.shape != s0.shape:
-        raise ValueError(f"svolume_cost: grid {(Hc, Wc)} does not match "
+        raise ValueError(f"multiview_cost: grid {(Hc, Wc)} does not match "
                          f"volume {(H, W)} at parity {parity}")
     fields = [stats.weights, stats.ref_centered, stats.mean_ref,
               stats.var_ref, stats.inv_wsum, stats.center]
@@ -102,31 +139,43 @@ def svolume_cost(vol: torch.Tensor, s_lo: float, inv_ds: float,
     if (stats.weights.shape != (O, Hc, Wc)
             or stats.ref_centered.shape != (O, Hc, Wc)
             or any(f.shape != (Hc, Wc) for f in fields[2:])):
-        raise ValueError("svolume_cost: stats do not match the grid")
-    for tsr in (s0, sx, sy, vol, *fields):
+        raise ValueError("multiview_cost: stats do not match the grid")
+    for tsr in (s0, sx, sy, *vols, *fields):
         if tsr.device != s0.device:
-            raise ValueError("svolume_cost: tensors on different devices")
+            raise ValueError("multiview_cost: tensors on different devices")
     for tsr in (s0, sx, sy, *fields):
         if tsr.dtype != torch.float32:
-            raise TypeError("svolume_cost: float32 inputs expected")
+            raise TypeError("multiview_cost: float32 inputs expected")
     fields = [f.contiguous() for f in fields]
+    ids = ids.to(device=s0.device, dtype=torch.int64).contiguous()
     C = 1
     for n in lead:
         C *= n
     s0c, sxc, syc = (a.reshape(C, Hc, Wc).contiguous()
                      for a in (s0, sx, sy))
-    out = torch.empty((C, Hc, Wc), dtype=torch.float32, device=s0.device)
+    cost = torch.empty((C, Hc, Wc), dtype=torch.float32, device=s0.device)
+    ratio = torch.empty_like(cost)
+    best_view = torch.empty((C, Hc, Wc), dtype=torch.int32,
+                            device=s0.device)
+    vol_ptrs = (ctypes.c_void_p * V)(*(v.data_ptr() for v in vols))
+    planes = (ctypes.c_int * V)(*(int(v.shape[0]) for v in vols))
+    inv = (ctypes.c_float * V)(*(float(x) for x in inv_ds))
     lib = _build.load_library()
     stream = torch.cuda.current_stream(s0.device).cuda_stream
     for c0 in range(0, C, MAX_C):
         n = min(MAX_C, C - c0)
-        code = lib.tsar_svol_ncc(
+        code = lib.tsar_svol_ncc_multiview(
             s0c[c0].data_ptr(), sxc[c0].data_ptr(), syc[c0].data_ptr(),
-            n, Hc, Wc, *(f.data_ptr() for f in fields), vol.data_ptr(),
-            S, H, W, float(s_lo), float(inv_ds),
+            n, Hc, Wc, *(f.data_ptr() for f in fields), vol_ptrs, planes,
+            inv, V, ids.data_ptr(), H, W, float(s_lo),
             -1 if parity is None else int(parity), params.hrad,
             params.vrad, params.win_increment, float(params.cost_max),
-            float(params.min_var), out[c0].data_ptr(), stream)
-        _build.check(code, "tsar_svol_ncc")
+            float(params.min_var), cost[c0].data_ptr(),
+            ratio[c0].data_ptr(), best_view[c0].data_ptr(), stream)
+        _build.check(code, "tsar_svol_ncc_multiview")
         LAUNCHES += 1
-    return out.reshape(*lead, Hc, Wc)
+        LAUNCHES_BY_SHAPE[(Hc, Wc, n)] += 1
+    shape = (*lead, Hc, Wc)
+    return MultiviewCost(cost=cost.reshape(shape),
+                         best_view=best_view.reshape(shape),
+                         ratio=ratio.reshape(shape))

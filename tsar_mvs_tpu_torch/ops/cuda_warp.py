@@ -13,14 +13,18 @@ eligibility gate.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from tsar_mvs_tpu_torch import _build
 from tsar_mvs_tpu_torch.ops.sampling import (bilinear_sample_packed,
                                              pack_image)
 
-# Kernel launches since the last reset (read by chip_smoke.py).
+# Kernel launches since the last reset (read by chip_smoke.py), in all and
+# by (planes, image rows, image columns).
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # Planes per step of the plain version (bounds its f32 temporaries).
 _PLAIN_CHUNK = 16
@@ -80,4 +84,5 @@ def build_svolume_view(src: torch.Tensor, A: torch.Tensor,
                                .cuda_stream)
     _build.check(code, "tsar_warp_build")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(int(S), H, W)] += 1
     return out

@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.geometry import CameraSet, pixel_grid, pixel_rays
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops.sampling import (bilinear_sample,
@@ -115,7 +115,9 @@ def aggregate_streaming(per_view, ids: torch.Tensor) -> MultiviewCost:
     """n_best = 1 aggregation over per-view cost thunks: the running top-2
     min streams view by view, so one per-view cost is live at a time.
     Cost is the best per-view cost; ratio = best / second; best_view the
-    argmin's id (-1 when no view is below MAXCOST)."""
+    argmin's id (-1 when no view is below MAXCOST). This is the second
+    half of kernel B1's plain version (``cuda_ncc.multiview_cost_plain``);
+    on the card the kernel keeps the top-2 itself."""
     best = per_view[0]()
     second = torch.full_like(best, MAXCOST)
     bidx = torch.zeros(best.shape, dtype=torch.int64, device=best.device)

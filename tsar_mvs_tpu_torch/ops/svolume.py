@@ -22,10 +22,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
-from tsar_mvs_tpu_torch.ops.ncc import (MultiviewCost, RefStats,
-                                        aggregate_streaming)
+from tsar_mvs_tpu_torch.ops.ncc import MultiviewCost, RefStats
 
 
 class SVolume(NamedTuple):
@@ -118,27 +117,16 @@ def plane_scalars(normal: torch.Tensor, d: torch.Tensor, stats: RefStats
     return s0, sx, sy
 
 
-def svolume_cost(vol: SVolume, view_slot: int, s0: torch.Tensor,
-                 sx: torch.Tensor, sy: torch.Tensor, stats: RefStats,
-                 params: AlgorithmParams,
-                 parity: int | None) -> torch.Tensor:
-    """Cost against one view: kernel B1 on the card, its plain version on
-    the CPU."""
-    return cuda_ncc.svolume_cost(vol.data[view_slot], vol.s_lo,
-                                 vol.inv_ds[view_slot], s0, sx, sy, stats,
-                                 params, parity)
-
-
 def multiview_cost_svolume(vol: SVolume, ids: torch.Tensor,
                            normal: torch.Tensor, d: torch.Tensor,
                            stats: RefStats, params: AlgorithmParams,
                            parity: int | None = None) -> MultiviewCost:
-    """n_best = 1 streaming top-2 aggregation of the per-view costs.
-    ids: (V,) view ids reported in best_view."""
+    """n_best = 1 cost of the planes against every view, aggregated by
+    the streaming top-2 (kernel B1: one launch for all views on the card,
+    its plain version on the CPU). ids: (V,) view ids reported in
+    best_view."""
     if params.n_best != 1:
         raise NotImplementedError("the s-volume path supports n_best == 1")
     s0, sx, sy = plane_scalars(normal, d, stats)
-    per_view = [lambda v=v: svolume_cost(vol, v, s0, sx, sy, stats, params,
-                                         parity)
-                for v in range(vol.num_views)]
-    return aggregate_streaming(per_view, ids)
+    return cuda_ncc.multiview_cost(vol.data, vol.s_lo, vol.inv_ds, ids, s0,
+                                   sx, sy, stats, params, parity)

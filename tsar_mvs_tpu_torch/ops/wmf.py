@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams
+from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.ops.checkerboard import shift_const
 

@@ -30,11 +30,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tsar_mvs_tpu.config import AlgorithmParams, FusionParams
-from tsar_mvs_tpu.models import weak_texture as wt
-from tsar_mvs_tpu.utils import display, dmb, ply, scene_io
-from tsar_mvs_tpu.utils.pfm import read_pfm
-from tsar_mvs_tpu.utils.synthetic import read_png_gray
+from tsar_mvs_tpu_torch.config import AlgorithmParams, FusionParams
+from tsar_mvs_tpu_torch.models import weak_texture as wt
+from tsar_mvs_tpu_torch.utils import display, dmb, ply, scene_io
+from tsar_mvs_tpu_torch.utils.pfm import read_pfm
+from tsar_mvs_tpu_torch.utils.synthetic import read_png_gray
 from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.models import fusion as fusion_mod
 from tsar_mvs_tpu_torch.models import patchmatch as pm
@@ -151,6 +151,17 @@ def default_params_for_scene(scene: Scene,
                                    K[0, 0] / params.cam_scale)
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device. The entry points default to the card;
+    asking for it on a machine without one raises, so nothing runs on
+    the CPU unless the caller says device="cpu"."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to run on "
+                           "the CPU")
+    return device
+
+
 def pyramid_levels_for(height: int) -> tuple[int, ...]:
     """Coarse-to-fine downsample factors of the PatchMatch pyramid."""
     return (4, 2, 1) if height >= 1024 else (2, 1)
@@ -184,7 +195,8 @@ def scene_plane_counts(scene: Scene, params: AlgorithmParams,
                 cams_list.append(geo.build_camera_set(
                     [scene.P[i] for i in order],
                     cam_scale=float(s) * params.cam_scale,
-                    depth_min=scene.depth_min, depth_max=scene.depth_max))
+                    depth_min=scene.depth_min, depth_max=scene.depth_max,
+                    device="cpu"))  # plane counts are host arithmetic
                 vids_list.append(view_ids)
             scene._svol_counts_cache[key] = pm.svolume_plane_counts_shared(
                 cams_list, vids_list, *dims[s], params)
@@ -193,11 +205,12 @@ def scene_plane_counts(scene: Scene, params: AlgorithmParams,
 
 
 def run_slic_stage(gray: np.ndarray, params: AlgorithmParams,
-                   device: torch.device | str = "cpu"
+                   device: torch.device | str = "cuda"
                    ) -> tuple[np.ndarray, slic_mod.SlicResult]:
     """SLIC on the quarter-scale reference image. Returns (full-resolution
     nearest-upsampled labels, quarter-scale SlicResult)."""
-    g = torch.as_tensor(np.asarray(gray, np.float32), device=device)
+    g = torch.as_tensor(np.asarray(gray, np.float32),
+                        device=resolve_device(device))
     q = pm.downsample_2x(pm.downsample_2x(g))
     res = slic_mod.slic(slic_mod.gray_to_feature(q),
                         spixel_size=params.slic_spixel_size,
@@ -251,7 +264,7 @@ def process_view(scene: Scene, ref_idx: int,
                  pm_iterations: int | None = None,
                  write_ply: bool = True,
                  write_vis: bool = False,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  timer=None) -> tsar.TsarResult:
     """Full per-view run: weak texture -> SLIC -> [APD prior | PatchMatch
     pyramid] -> TSAR refinement -> artifacts in `out_dir` (default
@@ -262,12 +275,13 @@ def process_view(scene: Scene, ref_idx: int,
     runs only for `pm_iterations` > 0 (default 0), at full resolution from
     the lifted state. Otherwise `pm_iterations` overrides the pyramid's
     iterations. `write_vis` adds the normal, disparity and confidence PNGs
-    and the parameter dump. `generator` (a torch.Generator on `device`)
-    defaults to one seeded 0. `timer(name)`, when given, is called at
-    each stage boundary with the name of the stage that just ended (the
-    stage names of bench.py)."""
+    and the parameter dump. `device` defaults to the card and raises
+    without one (device="cpu" runs the plain versions of the kernels).
+    `generator` (a torch.Generator on `device`) defaults to one seeded 0.
+    `timer(name)`, when given, is called at each stage boundary with the
+    name of the stage that just ended (the stage names of bench.py)."""
     t0 = time.time()
-    device = torch.device(device)
+    device = resolve_device(device)
     mark = timer or (lambda name: None)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -338,7 +352,7 @@ def process_view(scene: Scene, ref_idx: int,
     if write_ply:
         cams_world = geo.build_camera_set([scene.P[i] for i in order],
                                           cam_scale=params.cam_scale,
-                                          rebase=False)
+                                          rebase=False, device="cpu")
         write_view_ply(out_dir / "TSAR_model.ply", result, gray, cams_world)
     if write_vis:
         display.write_png(out_dir / "TSAR_normals.png",
@@ -382,11 +396,13 @@ def process_scene(scene_root: str | Path,
                   params: AlgorithmParams | None = None, seed: int = 0,
                   write_ply: bool = True,
                   resume: bool = False,
-                  device: torch.device | str = "cpu"
+                  device: torch.device | str = "cuda"
                   ) -> list[tsar.TsarResult | None]:
-    """Every reference view of a scene, one after another. With `resume`,
-    views whose TSAR_disp.dmb exists are skipped (None in the result).
-    View i draws from a generator seeded seed * 1000003 + i."""
+    """Every reference view of a scene, one after another, on `device`
+    (the card unless the caller says otherwise). With `resume`, views
+    whose TSAR_disp.dmb exists are skipped (None in the result). View i
+    draws from a generator seeded seed * 1000003 + i."""
+    device = resolve_device(device)
     scene = load_scene(scene_root)
     results = []
     for ref_idx, name in enumerate(scene.names):
@@ -394,7 +410,7 @@ def process_scene(scene_root: str | Path,
                        / "TSAR_disp.dmb").exists():
             results.append(None)
             continue
-        gen = torch.Generator(device=torch.device(device)).manual_seed(
+        gen = torch.Generator(device=device).manual_seed(
             seed * 1000003 + ref_idx)
         results.append(process_view(scene, ref_idx, params, gen,
                                     write_ply=write_ply, device=device))
@@ -407,6 +423,7 @@ def fuse_scene(scene_root: str | Path, fp: FusionParams | None = None,
     """Fuse every view's TSAR_disp/TSAR_normals into
     results/TSAR_fused.ply (cameras not rebased: world frame) on
     `device`, which the caller names."""
+    device = resolve_device(device)
     scene = load_scene(scene_root)
     fp = fp or FusionParams()
     params = default_params_for_scene(scene, params)
