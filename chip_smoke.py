@@ -42,25 +42,54 @@ line:
    PatchMatch; acc2_final must reach 0.95), and with 2 full-resolution
    PatchMatch iterations from the lifted prior, under the default
    4096 MiB s-volume budget (acc2_final must reach 0.85) and under
-   16384 MiB (acc2_final must reach 0.95); both kernels must launch in
-   each PatchMatch run.
+   16384 MiB (acc2_final must reach 0.95), both kernels launching in
+   each PatchMatch run; and a fourth time with 2 iterations on the
+   direct sampler (ncc_impl="direct", no plane spacing; acc2_final must
+   reach 0.95), launching kernel B3 only;
+8. the direct sampler (kernel B3), one line per part:
+   (a) B3 against its plain version at 672x1024 (level 2, within phase
+       4's loop): random and smooth fields, 1, 4 and 8 candidates with
+       invalid (d = 0) ones, both parities and the dense grid, n_best 1
+       and 3, grayscale and colour, and a 7x5 window (the generic loop);
+       cost and ratio within 1e-3, invalid candidates exactly cost_max
+       with view -1, the best view equal off ties;
+   (b) B3 timed at every shape the direct path launches
+       (kernel_times.time_b3_level, phase 4's loop), beside its plain
+       version and its bound;
+   (c) view 0 through process_view with ncc_impl="direct": B3 launches
+       once per cost evaluation (kernel_times.launch_plan), B1 and B2
+       never; acc2_pm and acc2_final must reach 0.95;
+   (d) view 0 of the scene exported as 3-channel PFMs (channels of
+       kernel_times.color_from_gray) with color_processing=True, and
+       view 0 with n_best=3: both must reach 0.95 (with n_best 3 over
+       the pixels seen by at least 3 sources), launching B3 only and
+       once per evaluation, and the colour run's PLY colours must equal
+       its input;
+   (e) images whose pyramid level 2 has an odd side: view 0 of
+       make_scene(500, 750) on both samplers, each within 0.02 acc2_pm
+       of the same run at 500x752.
 
 Then PatchMatch's seconds split into B1, B2 and the rest (profiler),
 one JSON line of per-kernel results (the top-level numbers of a kernel
 are those of its level-1 shape, "shapes" holds every timed shape and
-"launches_by_shape" the main path's counted launches at each), the card
-line, and last {"ok": true, "device": {...}}.
+"launches_by_shape" the counted launches at each of its main path: B1's
+and B2's the default view's, B3's the direct view's), the card line, and
+last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import sys
 import tempfile
 import time
 from pathlib import Path
 
 H, W, VIEWS = 1344, 2048, 8
+# Phase 8(e): an image whose pyramid level 2 has an odd side, beside one
+# two columns wider whose levels are all even; views of each scene.
+ODD, EVEN, ODD_VIEWS = (500, 750), (500, 752), 4
 
 
 def check_warp(scene, params, dev) -> dict:
@@ -190,10 +219,92 @@ def check_ncc(lv: dict, gt: dict) -> float:
     return worst
 
 
-def acc2_for(scene_gt, scene, ref: int, depth):
+# Phase 8(a) cases: (field, candidates, parity, n_best, colour, window).
+B3_CASES = (("random", 8, 0, 1, False, (11, 11)),
+            ("random", 1, None, 1, False, (11, 11)),
+            ("smooth", 4, 1, 3, False, (11, 11)),
+            ("smooth", 1, 0, 1, False, (11, 11)),
+            ("smooth", 8, None, 3, True, (11, 11)),
+            ("random", 4, 0, 3, True, (11, 11)),
+            ("smooth", 1, 1, 1, True, (11, 11)),
+            ("random", 8, 1, 1, True, (11, 11)),
+            ("random", 4, 0, 1, False, (7, 5)))
+
+
+def check_direct(lv: dict, gt: dict) -> float:
+    """Phase 8(a): kernel B3 against its plain version on one level's
+    inputs, B3_CASES; the last candidate is invalid (d = 0) everywhere and,
+    with more than one, another on 10% of the pixels (on 10% of them with
+    one). Prints one line; returns the largest |delta| of the cost."""
+    import dataclasses
+    import torch
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.ops import checkerboard as cb
+    from tsar_mvs_tpu_torch.ops import cuda_direct, ncc
+    from tsar_mvs_tpu_torch.ops import ncc_color as nc
+    dev = lv["imgs"].device
+    Hs, Ws = lv["imgs"].shape[1:]
+    g = torch.Generator(device=dev).manual_seed(11)
+    inputs = {False: kt.direct_inputs(lv, False)[0],
+              True: kt.direct_inputs(lv, True)[0]}
+    rgb0 = kt.color_from_gray(lv["imgs"][0])
+    cases, ok_all, worst = [], True, 0.0
+    for field, C, parity, n_best, color, window in B3_CASES:
+        params = dataclasses.replace(lv["params"], n_best=n_best,
+                                     box_hsize=window[0],
+                                     box_vsize=window[1])
+        stats = (nc.precompute_ref_stats_color(rgb0, lv["cams"], params)
+                 if color else ncc.precompute_ref_stats(lv["imgs"][0],
+                                                        lv["cams"], params))
+        n, d = (kt.random_field(lv, C, g) if field == "random"
+                else kt.smooth_field(lv, gt, C, g))
+        invalid = torch.zeros((C, Hs, Ws), dtype=torch.bool, device=dev)
+        invalid[-1] = C > 1
+        invalid[0] |= torch.rand((Hs, Ws), generator=g, device=dev) < 0.1
+        d = torch.where(invalid, 0.0, d)
+        if parity is not None:
+            stats = (nc.compress_stats_color if color
+                     else ncc.compress_stats)(stats, parity)
+            n, d = cb.parity_compress_vec(n, parity), cb.parity_compress(
+                d, parity)
+            invalid = cb.parity_compress(invalid, parity)
+        args = (inputs[color], *ncc.plane_scalars(n, d, stats), stats,
+                params, parity)
+        before = cuda_direct.LAUNCHES
+        mk = cuda_direct.multiview_cost_direct(*args)
+        launches = cuda_direct.LAUNCHES - before
+        mp = cuda_direct.multiview_cost_direct_plain(*args)
+        untied = (mk.cost == mp.cost) & (mp.ratio != 1.0)
+        r = {"field": field, "C": C, "parity": parity, "n_best": n_best,
+             "channels": 3 if color else 1, "window": list(window),
+             "launches": launches,
+             "max": kt.max_abs_diff(mk.cost, mp.cost),
+             "ratio_max": kt.max_abs_diff(mk.ratio, mp.ratio),
+             "best_view_mismatches": int(
+                 (mk.best_view[untied] != mp.best_view[untied]).sum()),
+             "invalid_exact": bool(
+                 (mk.cost[invalid] == params.cost_max).all()
+                 and (mp.cost[invalid] == params.cost_max).all()
+                 and (mk.best_view[invalid] == -1).all()),
+             "valid_frac": float((mk.best_view >= 0).float().mean())}
+        ok = (r["max"] <= 1e-3 and r["ratio_max"] <= 1e-3
+              and not r["best_view_mismatches"] and r["invalid_exact"]
+              and launches == 1 and r["valid_frac"] > 0.3)
+        ok_all &= ok
+        worst = max(worst, r["max"])
+        cases.append({**r, "pass": ok})
+        del mk, mp, args, stats
+    print(f"B3 direct vs plain (phase 8a): {json.dumps(cases)} -> "
+          f"{'PASS' if ok_all else 'FAIL'}", flush=True)
+    if not ok_all:
+        raise SystemExit("B3 disagrees with its plain version")
+    return worst
+
+
+def acc2_for(scene_gt, scene, ref: int, depth, min_sources: int = 1):
     """acc2 of a depth map over the matchable textured pixels of view
-    `ref` (finite GT, not weak, seen by a source of its pair.txt) and over
-    its weak pixels: {"textured": x, "weak": y}."""
+    `ref` (finite GT, not weak, seen by at least `min_sources` sources of
+    its pair.txt) and over its weak pixels: {"textured": x, "weak": y}."""
     import numpy as np
     from tsar_mvs_tpu_torch.utils.synthetic import source_coverage
     from tsar_mvs_tpu_torch import pipeline
@@ -201,7 +312,8 @@ def acc2_for(scene_gt, scene, ref: int, depth):
     gt = scene_gt.depth[ref]
     ok_px = np.isfinite(gt) & ~scene_gt.weak_mask[ref]
     matchable = ok_px & (source_coverage(scene_gt, ref=ref,
-                                         src_views=order[1:]) >= 1)
+                                         src_views=order[1:])
+                         >= min_sources)
     weak_sel = np.isfinite(gt) & scene_gt.weak_mask[ref]
     rel = np.abs(depth - gt) / np.where(np.isfinite(gt), gt, 1.0)
 
@@ -225,29 +337,37 @@ def stage_timer(stages: dict):
     return timer
 
 
+def _wrappers() -> dict:
+    """The kernel wrappers by key: B1 "ncc", B2 "warp", B3 "direct"."""
+    from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp
+    return {"ncc": cuda_ncc, "warp": cuda_warp, "direct": cuda_direct}
+
+
 def reset_launches() -> None:
-    from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
-    cuda_ncc.LAUNCHES = 0
-    cuda_warp.LAUNCHES = 0
-    cuda_ncc.LAUNCHES_BY_SHAPE.clear()
-    cuda_warp.LAUNCHES_BY_SHAPE.clear()
+    for mod in _wrappers().values():
+        mod.LAUNCHES = 0
+        mod.LAUNCHES_BY_SHAPE.clear()
 
 
 def read_launches() -> dict:
-    from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
-    return {"ncc": cuda_ncc.LAUNCHES, "warp": cuda_warp.LAUNCHES}
+    return {k: mod.LAUNCHES for k, mod in _wrappers().items()}
 
 
 def read_launches_by_shape() -> dict:
     """The wrappers' counts by shape: B1 by packed or dense grid and
-    candidates of the launch, B2 by image grid and planes."""
-    from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
+    candidates of the launch, B2 by image grid and planes, B3 by grid,
+    candidates, channels and n_best."""
+    w = _wrappers()
     return {"ncc": [{"grid": [hc, wc], "C": c, "launches": n}
                     for (hc, wc, c), n
-                    in sorted(cuda_ncc.LAUNCHES_BY_SHAPE.items())],
-            "warp": [{"grid": [h, w], "planes": s, "launches": n}
-                     for (s, h, w), n
-                     in sorted(cuda_warp.LAUNCHES_BY_SHAPE.items())]}
+                    in sorted(w["ncc"].LAUNCHES_BY_SHAPE.items())],
+            "warp": [{"grid": [h, w_], "planes": s, "launches": n}
+                     for (s, h, w_), n
+                     in sorted(w["warp"].LAUNCHES_BY_SHAPE.items())],
+            "direct": [{"grid": [hc, wc], "C": c, "channels": ch,
+                        "n_best": nb, "launches": n}
+                       for (hc, wc, c, ch, nb), n
+                       in sorted(w["direct"].LAUNCHES_BY_SHAPE.items())]}
 
 
 def run_main_path(scene_gt, root: Path, dev) -> dict:
@@ -291,8 +411,9 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     if missing or not finite:
         raise SystemExit(f"main path artifacts: missing {missing}, "
                          f"finite depth {finite}")
-    if min(launches.values()) == 0:
-        raise SystemExit(f"a kernel was not launched: {launches}")
+    if min(launches["ncc"], launches["warp"]) == 0 or launches["direct"]:
+        raise SystemExit(f"the main path launches B1 and B2 only: "
+                         f"{launches}")
     for kernel, total in launches.items():
         if sum(sh["launches"] for sh in by_shape[kernel]) != total:
             raise SystemExit(f"{kernel}: launches by shape {by_shape} do "
@@ -340,7 +461,7 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
            "recall": fs.recall, "score_s": time.perf_counter() - t0,
            "launches": launches}
     print(f"scene phase: {json.dumps(res)}", flush=True)
-    if min(launches.values()) == 0:
+    if min(launches["ncc"], launches["warp"]) == 0:
         raise SystemExit(f"a kernel was not launched in the scene: "
                          f"{launches}")
     if fs.f1 < 0.94 or min(acc2_final) < 0.95:
@@ -349,13 +470,16 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
     return res
 
 
-# (pm_iterations, svolume_budget_mb, least acc2_final) of phase 7's runs.
-# The default budget leaves view 1's full-resolution volume at 18 to 211
-# planes per source, a maximum epipolar spacing of about 34 px against
-# the 2 px design step, and PatchMatch from the prior then falls to
-# about 0.71 (0.89 after refinement; NVIDIA H100 80GB HBM3, 700.00 W).
-# 16384 MiB narrows the spacing to about 7 px (peak about 19.5 GB).
-APD_RUNS = ((0, 4096, 0.95), (2, 4096, 0.85), (2, 16384, 0.95))
+# (pm_iterations, svolume_budget_mb, ncc_impl, least acc2_final) of phase
+# 7's runs. The default budget leaves view 1's full-resolution volume at
+# 18 to 211 planes per source, a maximum epipolar spacing of about 34 px
+# against the 2 px design step, and PatchMatch from the prior then falls
+# to about 0.71 (0.89 after refinement; NVIDIA H100 80GB HBM3, 700.00 W).
+# 16384 MiB narrows the spacing to about 7 px (peak about 19.5 GB). The
+# direct sampler has no plane spacing (phase 8(f)); the budget does not
+# apply to it.
+APD_RUNS = ((0, 4096, "auto", 0.95), (2, 4096, "auto", 0.85),
+            (2, 16384, "auto", 0.95), (2, 4096, "direct", 0.95))
 
 
 def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
@@ -385,7 +509,7 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
     acc2_prior = acc2_for(scene_gt, scene, ref, prior)["textured"]
 
     out = []
-    for pm_iterations, budget, least in APD_RUNS:
+    for pm_iterations, budget, impl, least in APD_RUNS:
         stages: dict[str, float] = {}
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -394,12 +518,14 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
         reset_launches()
         t0 = time.perf_counter()
         result = pipeline.process_view(
-            scene, ref, AlgorithmParams(svolume_budget_mb=budget),
+            scene, ref, AlgorithmParams(svolume_budget_mb=budget,
+                                        ncc_impl=impl),
             pm_iterations=pm_iterations,
-            out_dir=root.parent / f"apd_pm{pm_iterations}_{budget}",
+            out_dir=root.parent / f"apd_pm{pm_iterations}_{budget}_{impl}",
             device=dev, timer=timer)
         torch.cuda.synchronize()
         res = {"pm_iterations": pm_iterations, "svolume_budget_mb": budget,
+               "ncc_impl": impl,
                "seconds": time.perf_counter() - t0, "stages": stages,
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "launches": read_launches(), "acc2_prior": acc2_prior,
@@ -411,15 +537,159 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
         print(f"APD prior: {json.dumps(res)}", flush=True)
         if not res["depth_finite"]:
             raise SystemExit("APD branch: non-finite depth")
-        if pm_iterations and min(res["launches"].values()) == 0:
-            raise SystemExit(f"a kernel was not launched on the APD branch: "
-                             f"{res['launches']}")
+        la = res["launches"]
+        used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
+                ) if pm_iterations else set()
+        if any((la[k] > 0) != (k in used) for k in la):
+            raise SystemExit(f"the APD branch launched {la}; expected "
+                             f"{sorted(used) or 'none'}")
         if res["acc2_final"] < least:
             raise SystemExit(f"APD, {pm_iterations} PatchMatch iterations, "
-                             f"{budget} MiB: acc2_final below {least}: "
-                             f"{res['acc2_final']}")
+                             f"{budget} MiB, {impl}: acc2_final below "
+                             f"{least}: {res['acc2_final']}")
         out.append(res)
     return out
+
+
+def run_direct_view(scene_gt, scene, params, out_dir: Path, dev,
+                    evaluations: int) -> dict:
+    """View 0 of `scene` through process_view with `params` on the direct
+    sampler: seconds, launches (B3 once per cost evaluation, B1 and B2
+    never) and acc2, both >= 0.95 over the pixels seen by at least n_best
+    sources. With n_best > 1 a pixel seen by fewer sources averages the
+    costs of views that cannot see its surface (the reference's best-n
+    mean has no visibility test), so acc2 over every matchable pixel
+    (seen by one source or more) is reported beside it, unheld."""
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    stages: dict[str, float] = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timer = stage_timer(stages)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = pipeline.process_view(scene, 0, params, out_dir=out_dir,
+                                   device=dev, timer=timer)
+    torch.cuda.synchronize()
+    res = {"seconds": time.perf_counter() - t0, "stages": stages,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": read_launches(),
+           "launches_by_shape": read_launches_by_shape()["direct"],
+           "acc2_pm": acc2_for(scene_gt, scene, 0, result.depth_pm,
+                               params.n_best)["textured"],
+           "acc2_final": acc2_for(scene_gt, scene, 0, result.depth,
+                                  params.n_best)["textured"],
+           "depth_finite": bool(np.isfinite(result.depth).all())}
+    if params.n_best > 1:
+        res["acc2_pm_seen_by_1"] = acc2_for(scene_gt, scene, 0,
+                                            result.depth_pm)["textured"]
+        res["acc2_final_seen_by_1"] = acc2_for(scene_gt, scene, 0,
+                                               result.depth)["textured"]
+    expect = {"ncc": 0, "warp": 0, "direct": evaluations}
+    if res["launches"] != expect:
+        raise SystemExit(f"direct view: launches {res['launches']}, "
+                         f"expected {expect}")
+    if (not res["depth_finite"] or res["acc2_pm"] < 0.95
+            or res["acc2_final"] < 0.95):
+        raise SystemExit(f"direct view below its limits: {res}")
+    return res
+
+
+def export_color_scene(scene_gt, root: Path) -> tuple[Path, object]:
+    """The scene at `root` with its views as 3-channel PFMs
+    (kernel_times.color_from_gray of the rendered gray images); cameras and
+    pair.txt copied. Returns the new root and the (V, 3, H, W) colours."""
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.utils.pfm import write_pfm
+    croot = root.parent / "scene_color"
+    (croot / "images").mkdir(parents=True, exist_ok=True)
+    shutil.copytree(root / "cams", croot / "cams", dirs_exist_ok=True)
+    shutil.copy(root / "pair.txt", croot / "pair.txt")
+    rgb = kt.color_from_gray(scene_gt.images)
+    for v in range(rgb.shape[0]):
+        write_pfm(croot / "images" / f"{v:08d}.pfm",
+                  rgb[v].transpose(1, 2, 0))
+    return croot, rgb
+
+
+def run_direct_phase(scene_gt, root: Path, dev, evaluations: int) -> dict:
+    """Phase 8(c) and 8(d): view 0 on the direct sampler in grayscale,
+    with color_processing on the colour export, and with n_best 3."""
+    import numpy as np
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.utils import ply
+    scene = pipeline.load_scene(root)
+    direct = run_direct_view(scene_gt, scene,
+                             AlgorithmParams(ncc_impl="direct"),
+                             root.parent / "direct_gray", dev, evaluations)
+    print(f"direct view (phase 8c): {json.dumps(direct)}", flush=True)
+    croot, rgb = export_color_scene(scene_gt, root)
+    out = root.parent / "direct_color"
+    color = run_direct_view(scene_gt, pipeline.load_scene(croot),
+                            AlgorithmParams(color_processing=True), out,
+                            dev, evaluations)
+    colors = ply.read_ply(out / "TSAR_model.ply")[2]
+    color["ply_colors_equal_input"] = bool(np.array_equal(
+        colors, rgb[0].transpose(1, 2, 0).reshape(-1, 3).astype(np.uint8)))
+    print(f"colour view (phase 8d): {json.dumps(color)}", flush=True)
+    if not color["ply_colors_equal_input"]:
+        raise SystemExit("the colour view's PLY colours differ from its "
+                         "input")
+    nbest = run_direct_view(scene_gt, scene, AlgorithmParams(n_best=3),
+                            root.parent / "direct_nbest3", dev, evaluations)
+    print(f"n_best 3 view (phase 8d): {json.dumps(nbest)}", flush=True)
+    return direct
+
+
+def run_odd_phase(dev) -> dict:
+    """Phase 8(e): view 0 of an ODD scene (pyramid level 2 has an odd side)
+    and of an EVEN one on both samplers; acc2_pm must agree to 0.02 per
+    sampler. Prints one line."""
+    import torch
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.utils.synthetic import make_scene
+    from tsar_mvs_tpu_torch import pipeline
+    base = Path(tempfile.mkdtemp(prefix="tsar_odd_"))
+    runs = {}
+    for h, w in (ODD, EVEN):
+        t = time.perf_counter()
+        sg = make_scene(height=h, width=w, num_views=ODD_VIEWS, seed=0)
+        root = sg.export(base / f"scene_{h}x{w}")
+        render_s = time.perf_counter() - t
+        scene = pipeline.load_scene(root)
+        for impl in ("svolume", "direct"):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            result = pipeline.process_view(
+                scene, 0, AlgorithmParams(ncc_impl=impl),
+                out_dir=base / f"out_{h}x{w}_{impl}", device=dev)
+            torch.cuda.synchronize()
+            la = read_launches()
+            used = {"direct"} if impl == "direct" else {"ncc", "warp"}
+            if any((la[k] > 0) != (k in used) for k in la):
+                raise SystemExit(f"{h}x{w} {impl}: launches {la}")
+            runs[f"{h}x{w} {impl}"] = {
+                "seconds": time.perf_counter() - t0, "render_s": render_s,
+                "launches": la,
+                "acc2_pm": acc2_for(sg, scene, 0, result.depth_pm)[
+                    "textured"],
+                "acc2_final": acc2_for(sg, scene, 0, result.depth)[
+                    "textured"]}
+    gaps = {impl: abs(runs[f"{ODD[0]}x{ODD[1]} {impl}"]["acc2_pm"]
+                      - runs[f"{EVEN[0]}x{EVEN[1]} {impl}"]["acc2_pm"])
+            for impl in ("svolume", "direct")}
+    ok = max(gaps.values()) <= 0.02
+    print(f"odd-sided levels (phase 8e): "
+          f"{json.dumps({'runs': runs, 'acc2_pm_gap': gaps})} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    if not ok:
+        raise SystemExit(f"odd-sided levels: acc2_pm gaps {gaps} above 0.02")
+    return runs
 
 
 def main() -> int:
@@ -460,17 +730,20 @@ def main() -> int:
     gt = {"depth": scene_gt.depth[0],
           "normal_world": scene_gt.normal_world[0]}
     warp = check_warp(scene, params, dev)
-    b1_shapes, b2_shapes, ncc_worst = [], [], 0.0
+    b1_shapes, b2_shapes, b3_shapes, ncc_worst = [], [], [], 0.0
     for li in range(len(kt.LEVELS)):
         lv = kt.level_inputs(scene, params, li, dev)
         b2_shapes.append(kt.time_b2_level(lv))
         if lv["level"] == 2:
             ncc_worst = check_ncc(lv, gt)
+            direct_worst = check_direct(lv, gt)
         b1_shapes.extend(kt.time_b1_level(lv, gt))
+        b3_shapes.extend(kt.time_b3_level(lv, gt))
         if lv["level"] == 1:
             b1_windows = kt.time_b1_windows(lv, gt)
         del lv
         torch.cuda.empty_cache()
+    print(f"B3 shapes (phase 8b): {json.dumps(b3_shapes)}", flush=True)
     for sh in b1_shapes:
         if (sh["max_abs_err"] > 1e-3 or sh["ratio_max_abs_err"] > 1e-3
                 or sh["best_view_mismatches"]):
@@ -484,13 +757,19 @@ def main() -> int:
     for sh in b2_shapes:
         if sh["max_abs_err"] > 2.0:
             raise SystemExit(f"B2 disagrees with its plain version at {sh}")
+    for sh in b3_shapes:
+        if (sh["max_abs_err"] > 1e-3 or sh["ratio_max_abs_err"] > 1e-3
+                or sh["best_view_mismatches"]):
+            raise SystemExit(f"B3 disagrees with its plain version at "
+                             f"{sh}")
     main_res = run_main_path(scene_gt, root, dev)
     plan = kt.launch_plan(scene, params)
     evaluations = sum(p["propagation"] + p["refinement"] + p["init"]
                       for p in plan)
     builds = sum(p["builds"] for p in plan)
     print(f"launch plan: {json.dumps(plan)}", flush=True)
-    if main_res["launches"] != {"ncc": evaluations, "warp": builds}:
+    if main_res["launches"] != {"ncc": evaluations, "warp": builds,
+                                "direct": 0}:
         raise SystemExit(f"launches {main_res['launches']} are not one per "
                          f"cost evaluation ({evaluations}) and one per "
                          f"volume ({builds})")
@@ -505,11 +784,18 @@ def main() -> int:
     run_scene_phase(scene_gt, root, dev)
     torch.cuda.empty_cache()
     run_apd_phase(scene_gt, root, dev)
+    torch.cuda.empty_cache()
+    direct_res = run_direct_phase(scene_gt, root, dev, evaluations)
+    torch.cuda.empty_cache()
+    run_odd_phase(dev)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head_b1 = next(sh for sh in b1_shapes if sh["level"] == 1
                    and sh["C"] == 1 and sh["field"] == "smooth")
     head_b2 = next(sh for sh in b2_shapes if sh["level"] == 1)
+    head_b3 = next(sh for sh in b3_shapes if sh["level"] == 1
+                   and sh["C"] == 1 and sh["field"] == "smooth"
+                   and sh["n_best"] == 1 and sh["channels"] == 1)
     kernels = [
         {"name": "svol_ncc_multiview", "route": "cuda",
          "source": "tsar_mvs_tpu_torch/csrc/ncc.cu",
@@ -528,6 +814,15 @@ def main() -> int:
                             max(sh["max_abs_err"] for sh in b2_shapes)),
          **{k: head_b2[k] for k in keys}, "shapes": b2_shapes,
          "launches_by_shape": main_res["launches_by_shape"]["warp"]},
+        {"name": "direct_multiview", "route": "cuda",
+         "source": "tsar_mvs_tpu_torch/csrc/direct.cu",
+         "replaces": "tsar_mvs_tpu/ops/ncc.py:130 (XLA; with "
+                     "tsar_mvs_tpu/ops/ncc_color.py:111)",
+         "launches": direct_res["launches"]["direct"],
+         "max_abs_err": max(direct_worst,
+                            max(sh["max_abs_err"] for sh in b3_shapes)),
+         **{k: head_b3[k] for k in keys}, "shapes": b3_shapes,
+         "launches_by_shape": direct_res["launches_by_shape"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

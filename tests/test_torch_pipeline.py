@@ -126,11 +126,12 @@ def test_cli_view_writes_artifacts(scene, tmp_path):
 
 
 def test_cli_scene_fuse_not_ported(tmp_path):
-    """What is not ported yet exits 2 before touching the scene:
-    -color_processing, --sharded on, bench, and an unknown command."""
+    """What is not ported yet exits 2 before touching the scene: --sharded
+    on (with or without -color_processing, which is ported and parses),
+    bench, and an unknown command."""
     from tsar_mvs_tpu_torch import cli
     assert cli.main(["scene", str(tmp_path), "-color_processing",
-                     "--device", "cpu"]) == 2
+                     "--sharded", "on", "--device", "cpu"]) == 2
     assert cli.main(["scene", str(tmp_path), "--sharded", "on",
                      "--device", "cpu"]) == 2
     assert cli.main(["bench"]) == 2

@@ -32,9 +32,9 @@ from tsar_mvs_tpu_torch.utils import ply as tply
 from tsar_mvs_tpu_torch.utils import scene_io as tio
 from tsar_mvs_tpu_torch.utils import synthetic as tsyn
 
-# Fields of the JAX AlgorithmParams that only its TPU paths (or its colour
-# sampler, which the port does not have) read.
-NOT_CARRIED = {"ncc_impl", "refine_block_frac", "color_processing"}
+# Fields of the JAX AlgorithmParams that only its TPU kernel's
+# tile-blocked refine draws read.
+NOT_CARRIED = {"refine_block_frac"}
 
 
 def _defaults(cls):

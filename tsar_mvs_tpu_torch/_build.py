@@ -37,6 +37,11 @@ SIGNATURES = {
         ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F), _I,
         _P, _I, _I, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "tsar_warp_build": [_P, _I, _I, _P, _F, _F, _I, _P, _P],
+    "tsar_direct_multiview": [
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+        ctypes.POINTER(_P), ctypes.POINTER(_F), ctypes.POINTER(_F),
+        ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P,
+        _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -118,8 +123,8 @@ def kernel_resources() -> list[str]:
     for line in BUILD_LOG.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel)(\w*)",
-                          m.group(1))
+            k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel"
+                          r"|direct_multiview_kernel)(\w*)", m.group(1))
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \
                 else m.group(1)

@@ -10,8 +10,9 @@
 A first argument that is a flag or an image file runs `gipuma`, as the
 reference binary's own command line does. `--device` defaults to `cuda`;
 without a CUDA device the commands that compute exit with status 1
-unless `--device cpu` is given. Not ported yet, exiting with status 2:
-`-color_processing`, `--n_best` above 1, `scene --sharded on` and
+unless `--device cpu` is given. `-color_processing` (colour NCC) and
+`--n_best` above 1 run PatchMatch on the direct sampler (kernel B3 on the
+card). Not ported yet, exiting with status 2: `scene --sharded on` and
 `bench`.
 """
 
@@ -46,6 +47,8 @@ def _alg_params(ns) -> AlgorithmParams:
         v = getattr(ns, flag, None)
         if v is not None:
             kw[field] = v
+    if getattr(ns, "color_processing", False):
+        kw["color_processing"] = True
     if getattr(ns, "border_check", False):
         kw["border_check"] = True
     if getattr(ns, "no_border_check", False):
@@ -137,10 +140,6 @@ def cmd_gipuma(argv: list[str]) -> int:
     ns, unknown = p.parse_known_args(argv)
     for u in unknown:
         print(f"Command-line parameter warning: unknown option {u}")
-    if ns.color_processing:
-        return _not_ported("color processing")
-    if ns.n_best > 1:
-        return _not_ported("--n_best > 1")
     if ns.algorithm != "pm":
         print(f"warning: --algorithm={ns.algorithm} selects a Gipuma "
               "variant TSAR does not run; proceeding with pm (NCC)")
@@ -237,7 +236,9 @@ def cmd_scene(argv: list[str]) -> int:
     p.add_argument("--prop_banks_fine", type=int, default=None,
                    help="propagation banks on lifted pyramid levels")
     p.add_argument("-color_processing", dest="color_processing",
-                   action="store_true", help="not ported yet")
+                   action="store_true",
+                   help="3-channel bilateral NCC on the colour images "
+                        "(direct sampler)")
     p.add_argument("--sharded", choices=("auto", "on", "off"),
                    default="auto",
                    help="'on' (view sharding over GPUs) is not ported yet; "
@@ -245,8 +246,6 @@ def cmd_scene(argv: list[str]) -> int:
                         "JAX CLI and both run the views one after another")
     _add_device(p)
     ns = p.parse_args(argv)
-    if ns.color_processing:
-        return _not_ported("color processing")
     if ns.sharded == "on":
         return _not_ported("--sharded on")
     device = _device(ns)

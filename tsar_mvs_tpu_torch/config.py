@@ -4,10 +4,11 @@ One flag namespace with the reference's knob names so its scene scripts
 translate 1:1 (reference: algorithmparameters.h:19-89, main.cpp:708-1009,
 scripts/courtyard.sh:10-25).
 
-Field names and defaults are those of the JAX package, less the fields
-only its TPU paths read (`ncc_impl`, `refine_block_frac`) and
-`color_processing`, whose sampler the port does not have;
-``convert.algorithm_params`` builds these from the JAX package's objects.
+Field names and defaults are those of the JAX package, less
+`refine_block_frac`, which only its TPU kernel's tile-blocked refine draws
+read; ``convert.algorithm_params`` builds these from the JAX package's
+objects (its `ncc_impl="pallas"` becomes `"svolume"`: on the card the
+s-volume path is the kernel that replaced the Pallas one).
 """
 
 from __future__ import annotations
@@ -132,6 +133,19 @@ class AlgorithmParams:
     # `--no_border_check` on the CLI restores reference-exact behavior.
     border_check: bool = True
     border_check_thr: float = 0.1
+    # Color (float4-equivalent) matching (-color_processing,
+    # main.cpp:766,909): 3-channel bilateral NCC on the direct sampler
+    # (ops/ncc_color.py documents the reference divergence — its own
+    # color path reads a float4 texture through tex2D<float>, UB).
+    color_processing: bool = False
+    # NCC sampler implementation for the PatchMatch hot loop.
+    #   "auto"    — the epipolar s-volume when n_best == 1 (ops/svolume.py,
+    #               kernels B1 and B2 on the card), the direct sampler
+    #               otherwise (models/patchmatch.resolve_ncc_impl);
+    #   "direct"  — always the exact per-sample gather path (ops/ncc.py,
+    #               kernel B3 on the card);
+    #   "svolume" — always the s-volume path.
+    ncc_impl: str = "auto"
     # s-volume quality/memory knobs (ops/svolume.py): target epipolar
     # motion between adjacent planes (px), fractional s-range margin for
     # slanted windows, and a total volume memory budget that coarsens

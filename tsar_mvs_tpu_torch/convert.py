@@ -59,16 +59,21 @@ def svolume(src, device) -> SVolume:
 
 def _params(cls, src):
     """`cls` from the same-named fields of the dataclass `src`; fields the
-    port does not have (those only the JAX package's TPU paths read) are
-    dropped."""
+    port does not have (`refine_block_frac`, which only the JAX package's TPU
+    kernel reads) are dropped."""
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in dataclasses.asdict(src).items()
                   if k in names})
 
 
 def algorithm_params(src) -> AlgorithmParams:
-    """The port's AlgorithmParams from the JAX package's (or the port's)."""
-    return _params(AlgorithmParams, src)
+    """The port's AlgorithmParams from the JAX package's (or the port's).
+    The JAX package's `ncc_impl="pallas"` becomes `"svolume"`: on the card
+    the port's s-volume path is the kernel that replaced the Pallas one."""
+    params = _params(AlgorithmParams, src)
+    if params.ncc_impl == "pallas":
+        params = dataclasses.replace(params, ncc_impl="svolume")
+    return params
 
 
 def fusion_params(src) -> FusionParams:

@@ -1,6 +1,8 @@
-"""Times of the two CUDA kernels at every shape the main path launches
-them at, beside the least time the card could take, and PatchMatch's
-seconds split into kernel B1, kernel B2 and the torch code around them.
+"""Times of the CUDA kernels at every shape the main path launches them
+at, beside the least time the card could take, and PatchMatch's seconds
+split into kernel B1, kernel B2 and the torch code around them. Kernel B3
+(the direct sampler) is timed at the shapes the direct path launches:
+the same grids and candidate counts as B1's.
 
     python -m tsar_mvs_tpu_torch.kernel_times render <scene_dir>
     python -m tsar_mvs_tpu_torch.kernel_times time <scene_dir> [--json OUT]
@@ -20,7 +22,10 @@ on each level's packed grid with the propagation pass's candidate count
 on a smooth one (the ground-truth planes with a refine-scale
 perturbation: what propagation and refinement evaluate once the state
 has converged), and on the coarsest level's dense grid (initialisation);
-kernel B2 on each level's largest view volume. Kernel B1 has one inner
+kernel B2 on each level's largest view volume; kernel B3 on B1's grids,
+candidate counts and fields, in grayscale with n_best 1 (the direct
+path of `ncc_impl="direct"`) and, on the finest level, with n_best 3 and in
+colour (channels from `color_from_gray`). Kernel B1 has one inner
 loop for the default 11x11 stride-2 window and a generic one for every
 other window; `time_b1_windows` times both on the full-resolution smooth
 field (9x9 and 13x13 beside the default) per window sample.
@@ -51,6 +56,13 @@ F32_FLOPS = 67e12
 B1_FLOPS_PER_SAMPLE = 21
 B1_FLOPS_PER_EPILOGUE = 15
 B2_FLOPS_PER_VOXEL = 26
+# Float operations of kernel B3 per window sample (offset, view and
+# candidate: plane coordinate 4, warp 6, reciprocal and projection 3,
+# clamp, floor and fraction 8) and per channel of it (interpolation 9,
+# centring 1, moments 6), and per candidate epilogue.
+B3_FLOPS_PER_SAMPLE = 21
+B3_FLOPS_PER_CHANNEL = 16
+B3_FLOPS_PER_EPILOGUE = 15
 # Windows (box_hsize, box_vsize; stride 2) of `time_b1_windows`: the
 # default between two that take kernel B1's generic loop.
 WINDOWS = ((9, 9), (11, 11), (13, 13))
@@ -80,7 +92,8 @@ def time_ms(fn, repeats: int, warmup: int = 1) -> float:
 
 def device_times(fn) -> dict | None:
     """Device microseconds and launch counts of one call of `fn`, by
-    kernel: {"b1": [us, n], "b2": [us, n], "other": [us, n], "b1_each_us":
+    kernel: {"b1": [us, n], "b2": [us, n], "b3": [us, n], "other": [us, n],
+    "b1_each_us":
     B1's launches one by one in launch order} from torch.profiler, or None
     when the profiler reports no device activity (it sometimes drops a
     short trace: two attempts)."""
@@ -93,13 +106,15 @@ def device_times(fn) -> dict | None:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        groups = {"b1": [0.0, 0], "b2": [0.0, 0], "other": [0.0, 0]}
+        groups = {"b1": [0.0, 0], "b2": [0.0, 0], "b3": [0.0, 0],
+                  "other": [0.0, 0]}
         b1_each = []
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
             key = ("b1" if "svol_ncc" in e.name
-                   else "b2" if "warp_build" in e.name else "other")
+                   else "b2" if "warp_build" in e.name
+                   else "b3" if "direct_multiview" in e.name else "other")
             groups[key][0] += e.time_range.elapsed_us()
             groups[key][1] += 1
             if key == "b1":
@@ -121,6 +136,22 @@ def render(scene_dir: Path) -> None:
                         depth=scene.depth[0].astype(np.float32),
                         normal_world=scene.normal_world[0]
                         .astype(np.float16))
+
+
+def color_from_gray(gray):
+    """Three unequal channels from a grayscale image (numpy or torch, the
+    channel axis before the last two): the identity, a 0.8 gamma curve and
+    0.6 g + 50, rounded to integers. Each is a pointwise monotone map, so
+    every channel is consistent across views."""
+    import numpy as np
+    if isinstance(gray, np.ndarray):
+        g = np.asarray(gray, np.float64)
+        return np.stack([g, 255.0 * (g / 255.0) ** 0.8, 0.6 * g + 50.0],
+                        axis=-3).round().astype(np.float32)
+    import torch
+    g = gray.to(torch.float64)
+    return torch.stack([g, 255.0 * (g / 255.0) ** 0.8, 0.6 * g + 50.0],
+                       dim=-3).round().to(torch.float32)
 
 
 def level_inputs(scene, params, li: int, dev) -> dict:
@@ -267,8 +298,9 @@ def b1_bound(lv: dict, s0, sx, sy, parity) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def b1_fields(lv: dict, gt: dict):
-    """(label, C, parity, normal, d) for every B1 shape of this level."""
+def main_path_fields(lv: dict, gt: dict):
+    """(label, C, parity, normal, d) for every cost-evaluation shape of
+    this level (B1's on the s-volume path, B3's on the direct one)."""
     import torch
     from tsar_mvs_tpu_torch.ops import checkerboard as cb
     gen = torch.Generator(device=lv["imgs"].device).manual_seed(7)
@@ -285,10 +317,19 @@ def b1_fields(lv: dict, gt: dict):
         yield "random", 1, None, n[0], d[0]
 
 
+def max_abs_diff(a, b) -> float:
+    """Largest |a - b|, where a NaN on both sides agrees (a ratio best /
+    second is 0 / 0 where both costs are 0, in the kernels as in their
+    plain versions and the JAX package) and a NaN on one side is inf."""
+    import torch
+    d = torch.nan_to_num((a - b).abs(), nan=float("inf"))
+    return float(torch.where(torch.isnan(a) & torch.isnan(b), 0.0, d).max())
+
+
 def agreement(mk, mp) -> dict:
     """Largest differences of two MultiviewCost results of one shape."""
-    return {"max_abs_err": float((mk.cost - mp.cost).abs().max()),
-            "ratio_max_abs_err": float((mk.ratio - mp.ratio).abs().max()),
+    return {"max_abs_err": max_abs_diff(mk.cost, mp.cost),
+            "ratio_max_abs_err": max_abs_diff(mk.ratio, mp.ratio),
             # A tie (ratio 1) may name either view.
             "best_view_mismatches": int(
                 ((mk.best_view != mp.best_view) & (mp.ratio != 1.0)).sum())}
@@ -304,7 +345,7 @@ def time_b1_level(lv: dict, gt: dict) -> list[dict]:
     vol = lv["vol"]
     stats_by = {None: lv["stats"], 0: ncc.compress_stats(lv["stats"], 0)}
     out = []
-    for label, C, parity, n, d in b1_fields(lv, gt):
+    for label, C, parity, n, d in main_path_fields(lv, gt):
         st = stats_by[parity]
 
         def evaluate():
@@ -333,6 +374,130 @@ def time_b1_level(lv: dict, gt: dict) -> list[dict]:
         res["library_ms"] = None
         out.append(res)
         print(f"B1 shape: {json.dumps(res)}", flush=True)
+    return out
+
+
+def direct_inputs(lv: dict, color: bool):
+    """Kernel B3's views (the level's sources, packed) and the reference
+    statistics per parity, grayscale or in colour (color_from_gray)."""
+    from tsar_mvs_tpu_torch.ops import cuda_direct, ncc
+    from tsar_mvs_tpu_torch.ops import ncc_color as nc
+    imgs, ids, cams = lv["imgs"], lv["ids"], lv["cams"]
+    if color:
+        imgs = color_from_gray(imgs)
+        stats = nc.precompute_ref_stats_color(imgs[0], cams, lv["params"])
+        by = {None: stats, 0: nc.compress_stats_color(stats, 0)}
+    else:
+        by = {None: lv["stats"], 0: ncc.compress_stats(lv["stats"], 0)}
+    return cuda_direct.make_views(imgs[ids], cams.A[ids], cams.b[ids],
+                                  ids), by
+
+
+def source_bytes_touched(lv: dict, views, s0, sx, sy, parity) -> int:
+    """Bytes of the packed sources that a direct cost evaluation of these
+    plane scalars reads, each packed pixel (8 bytes a channel) counted
+    once per view."""
+    import torch
+    from tsar_mvs_tpu_torch.ops import ncc
+    Hs, Ws = lv["imgs"].shape[-2:]
+    Hc, Wc = s0.shape[-2:]
+    dev = s0.device
+    yy = torch.arange(Hc, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(Wc, device=dev)[None, :].expand(Hc, Wc)
+    if parity is not None:
+        xx = 2 * xx + (parity + yy.to(torch.int64)) % 2
+    xx = xx.to(torch.float32)
+    total = 0
+    for v in range(len(views.packed)):
+        A, b = views.A[v], views.b[v]
+        seen = torch.zeros(Hs * Ws, dtype=torch.bool, device=dev)
+        for (i, j) in ncc.window_offsets(lv["params"]):
+            s = s0 + float(i) * sx + float(j) * sy
+            q = [A[r, 0] * (xx + i) + A[r, 1] * (yy + j) + A[r, 2] - b[r] * s
+                 for r in range(3)]
+            u = torch.clamp(torch.nan_to_num(q[0] / q[2], nan=0.0), 0,
+                            Ws - 1).floor().to(torch.int64)
+            w = torch.clamp(torch.nan_to_num(q[1] / q[2], nan=0.0), 0,
+                            Hs - 1).floor().to(torch.int64)
+            seen[(w * Ws + u)[torch.isfinite(s)]] = True
+        total += 8 * views.channels * int(seen.sum())
+        del seen
+    return total
+
+
+def b3_bound(lv: dict, views, s0, sx, sy, parity) -> dict:
+    """Least milliseconds for one direct multi-view cost evaluation."""
+    from tsar_mvs_tpu_torch.ops import ncc
+    C = s0.shape[0]
+    Hc, Wc = s0.shape[-2:]
+    O = len(ncc.window_offsets(lv["params"]))
+    V, CH = len(views.packed), views.channels
+    px = Hc * Wc
+    src_bytes = source_bytes_touched(lv, views, s0, sx, sy, parity)
+    # weights and centred reference channels, 3 + CH statistics, three
+    # plane scalars in and cost, ratio, best view out per candidate.
+    nbytes = px * (4 * O * (1 + CH) + 4 * (3 + CH) + 24 * C) + src_bytes
+    flops = px * V * C * (O * (B3_FLOPS_PER_SAMPLE
+                               + B3_FLOPS_PER_CHANNEL * CH)
+                          + B3_FLOPS_PER_EPILOGUE)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "source_bytes": src_bytes, "flops": flops,
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# (n_best, colour) variants of kernel B3 timed on every level, and on the
+# finest level only.
+B3_VARIANTS = ((1, False),)
+B3_VARIANTS_FINEST = ((3, False), (1, True))
+
+
+def time_b3_level(lv: dict, gt: dict) -> list[dict]:
+    """Every B3 shape of one level (main_path_fields), per variant:
+    evaluation ms (CUDA events around plane_scalars and
+    `cuda_direct.multiview_cost_direct`), the kernel's own device ms and
+    launches (profiler), the plain version's ms, the agreement and the
+    bound. No PyTorch call computes the windowed NCC (`grid_sample` does
+    only the bilinear fetch), so library_ms is null."""
+    import dataclasses
+    from tsar_mvs_tpu_torch.ops import cuda_direct, ncc
+    variants = B3_VARIANTS + (B3_VARIANTS_FINEST
+                              if lv["level"] == LEVELS[-1] else ())
+    fields = list(main_path_fields(lv, gt))
+    out = []
+    for n_best, color in variants:
+        params = dataclasses.replace(lv["params"], n_best=n_best)
+        views, stats_by = direct_inputs(lv, color)
+        for label, C, parity, n, d in fields:
+            st = stats_by[parity]
+
+            def evaluate():
+                return cuda_direct.multiview_cost_direct(
+                    views, *ncc.plane_scalars(n, d, st), st, params, parity)
+
+            s0, sx, sy = (a.reshape(-1, *a.shape[-2:])
+                          for a in ncc.plane_scalars(n, d, st))
+            res = {"level": lv["level"], "grid": list(s0.shape[-2:]),
+                   "C": C, "parity": parity, "field": label,
+                   "n_best": n_best, "channels": views.channels,
+                   "ms": time_ms(evaluate, 10, warmup=2)}
+            dt = device_times(evaluate)
+            res["kernel_ms"] = None if dt is None else dt["b3"][0] / 1e3
+            res["kernel_launches"] = None if dt is None else dt["b3"][1]
+
+            def plain_eval():
+                return cuda_direct.multiview_cost_direct_plain(
+                    views, s0, sx, sy, st, params, parity)
+
+            res["plain_ms"] = time_ms(plain_eval, 1, warmup=0)
+            res.update(agreement(evaluate(), plain_eval()))
+            res.update(b3_bound(lv, views, s0, sx, sy, parity))
+            res["library_ms"] = None
+            out.append(res)
+            print(f"B3 shape: {json.dumps(res)}", flush=True)
+        del views, stats_by
     return out
 
 
@@ -552,22 +717,25 @@ def patchmatch_split(scene, params, dev) -> dict:
 
 
 def time_all(scene, gt: dict, dev) -> dict:
-    """Every B1 and B2 shape, level by level (one level's volumes live at
-    a time), B1's windows on the last level, then the PatchMatch split."""
+    """Every B1, B2 and B3 shape, level by level (one level's volumes live
+    at a time), B1's windows on the last level, then the PatchMatch
+    split."""
     import torch
     from tsar_mvs_tpu_torch import pipeline
     params = pipeline.default_params_for_scene(scene)
-    b1, b2, windows = [], [], []
+    b1, b2, b3, windows = [], [], [], []
     for li in range(len(LEVELS)):
         lv = level_inputs(scene, params, li, dev)
         b2.append(time_b2_level(lv))
         b1.extend(time_b1_level(lv, gt))
+        b3.extend(time_b3_level(lv, gt))
         if li == len(LEVELS) - 1:
             windows = time_b1_windows(lv, gt)
         del lv
         torch.cuda.empty_cache()
     split = patchmatch_split(scene, params, dev)
-    return {"b1": b1, "b2": b2, "b1_windows": windows, "patchmatch": split}
+    return {"b1": b1, "b2": b2, "b3": b3, "b1_windows": windows,
+            "patchmatch": split}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,12 +1,15 @@
-"""Checkerboard PatchMatch MVS engine on the s-volume sampler (port of the
-s-volume path of ``tsar_mvs_tpu.models.patchmatch``).
+"""Checkerboard PatchMatch MVS engine (port of
+``tsar_mvs_tpu.models.patchmatch``).
 
 Red/black propagation over 8 candidate banks plus per-pixel random plane
 refinement, evaluated with the bilateral-NCC multi-view cost, on a
-coarse-to-fine pyramid. Costs come from kernel B1 and volumes from kernel
-B2 on the card (their plain versions on the CPU). Everything runs in the
-checkerboard-packed (H, W/2) layout, so image sizes must be even at every
-level.
+coarse-to-fine pyramid. Two samplers give the cost (`resolve_ncc_impl`):
+the epipolar s-volume (kernel B2 builds the volumes, kernel B1 evaluates)
+and the direct sampler (kernel B3), which also serves `n_best > 1` and
+`-color_processing`; the CPU runs their plain versions. Passes run in the
+checkerboard-packed (H, W/2) layout when H and W are even; otherwise (an
+odd-sided pyramid level) they evaluate on the dense grid and update only
+the parity's pixels, as the JAX package does.
 
 Randomness comes from an explicit ``torch.Generator``; the draws are
 per pixel at every refine scale (the JAX package's tile-blocked draws
@@ -25,8 +28,24 @@ import torch
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
-from tsar_mvs_tpu_torch.ops import ncc
+from tsar_mvs_tpu_torch.ops import cuda_direct, ncc, ncc_color
 from tsar_mvs_tpu_torch.ops import svolume as sv
+
+NCC_IMPLS = ("auto", "svolume", "direct")
+
+
+def resolve_ncc_impl(params: AlgorithmParams) -> str:
+    """The sampler of the PatchMatch cost: an explicit `ncc_impl` wins;
+    "auto" takes the s-volume (kernels B1 and B2) for the scripts' n_best
+    = 1 operating point and the direct sampler (kernel B3) for n_best > 1,
+    the JAX package's rule on an accelerator. The CPU follows the same
+    rule: it runs the plain versions of the card's kernels."""
+    if params.ncc_impl not in NCC_IMPLS:
+        raise ValueError(f"ncc_impl must be one of {NCC_IMPLS}, got "
+                         f"{params.ncc_impl!r}")
+    if params.ncc_impl != "auto":
+        return params.ncc_impl
+    return "svolume" if params.n_best == 1 else "direct"
 
 
 class PlaneState(NamedTuple):
@@ -211,19 +230,27 @@ def _take(take: torch.Tensor, new: PlaneState,
 
 def _propagation_pass(state: PlaneState, parity: int, cost_fn,
                       cams: geo.CameraSet, params: AlgorithmParams,
-                      pctx: ParityCtx) -> PlaneState:
+                      pctx: ParityCtx | None) -> PlaneState:
     """One checkerboard propagation half-pass: each pixel of `parity`
     evaluates its bank candidates (one batched multi-view evaluation over
-    the bank axis) and keeps the cheapest in-range one."""
+    the bank axis) and keeps the cheapest in-range one. With `pctx` None
+    (odd sides) the candidates are evaluated on the dense grid and only
+    the parity's pixels take them."""
     banks = cb.BANKS[len(cb.BANKS) - prop_bank_count(params):]
     cands = cb.select_candidates(state.normal, state.d, state.cost, banks)
-    xx, yy = pctx.coords[parity]
-    cand_n = cb.parity_compress_vec(cands.normal, parity)
-    cand_d = cb.parity_compress(cands.d, parity)
-    cand_valid = cb.parity_compress(cands.valid, parity)
-    best = _compress_state(state, parity)
+    if pctx is None:
+        H, W = state.shape
+        xx, yy = geo.pixel_grid(H, W, state.d.device)
+        cand_n, cand_d, cand_valid = cands.normal, cands.d, cands.valid
+        best = state
+    else:
+        xx, yy = pctx.coords[parity]
+        cand_n = cb.parity_compress_vec(cands.normal, parity)
+        cand_d = cb.parity_compress(cands.d, parity)
+        cand_valid = cb.parity_compress(cands.valid, parity)
+        best = _compress_state(state, parity)
 
-    mv = cost_fn(cand_n, cand_d, parity)
+    mv = cost_fn(cand_n, cand_d, None if pctx is None else parity)
     depth_at_p = geo.depth_from_plane(cams, cand_n, cand_d, xx, yy)
     in_borders = ((depth_at_p >= cams.depth_min)
                   & (depth_at_p <= cams.depth_max))
@@ -232,26 +259,40 @@ def _propagation_pass(state: PlaneState, parity: int, cost_fn,
         take = cand_cost[k] < best.cost
         best = _take(take, PlaneState(cand_n[k], cand_d[k], cand_cost[k],
                                       mv.ratio[k], mv.best_view[k]), best)
+    if pctx is None:
+        return _take(cb.parity_mask(H, W, parity, state.d.device), best,
+                     state)
     return _expand_state(best, state, parity)
 
 
 def _refinement_pass(state: PlaneState, parity: int,
                      generator: torch.Generator, cost_fn,
                      cams: geo.CameraSet, params: AlgorithmParams,
-                     pctx: ParityCtx) -> PlaneState:
+                     pctx: ParityCtx | None) -> PlaneState:
     """One checkerboard refinement half-pass: a random search in
     (disparity, normal) over the shrinking scales of refine_schedule, with
-    sequential accepts (each scale perturbs the previous scale's result)."""
+    sequential accepts (each scale perturbs the previous scale's result).
+    With `pctx` None (odd sides) the draws and evaluations cover the dense
+    grid and only the parity's pixels accept."""
     sched = refine_schedule(params)
     if not sched:
         return state
-    xx, yy = pctx.coords[parity]
-    vv = pctx.vv[parity]
-    rays = pctx.rays[parity]
     f, b = cams.f, cams.baseline
-    cur = _compress_state(state, parity)
+    dev = state.d.device
+    if pctx is None:
+        H, W = state.shape
+        xx, yy = geo.pixel_grid(H, W, dev)
+        vv = geo.view_vectors(cams, H, W)
+        rays = geo.pixel_rays(cams, H, W)
+        upd = cb.parity_mask(H, W, parity, dev)
+        cur = state
+    else:
+        xx, yy = pctx.coords[parity]
+        vv = pctx.vv[parity]
+        rays = pctx.rays[parity]
+        upd = None
+        cur = _compress_state(state, parity)
     shape = tuple(cur.d.shape)
-    dev = cur.d.device
     for delta_z, delta_n in sched:
         depth_now = geo.depth_from_plane(cams, cur.normal, cur.d, xx, yy)
         disp_now = geo.disparity_depth(f, b, depth_now)
@@ -268,15 +309,19 @@ def _refinement_pass(state: PlaneState, parity: int,
             shape + (3,), generator=generator, device=dev)
         n_new = geo.hemisphere_flip(geo.normalize(cur.normal + dn), vv)
         d_new = geo.plane_d_from_depth(n_new, rays, depth_new)
-        mv = cost_fn(n_new, d_new, parity)
-        cur = _take(mv.cost < cur.cost,
-                    PlaneState(n_new, d_new, mv.cost, mv.ratio,
-                               mv.best_view), cur)
+        mv = cost_fn(n_new, d_new, None if pctx is None else parity)
+        take = mv.cost < cur.cost
+        if upd is not None:
+            take = take & upd
+        cur = _take(take, PlaneState(n_new, d_new, mv.cost, mv.ratio,
+                                     mv.best_view), cur)
+    if pctx is None:
+        return cur
     return _expand_state(cur, state, parity)
 
 
 def make_patchmatch_step(cost_fn, cams: geo.CameraSet,
-                         params: AlgorithmParams, pctx: ParityCtx):
+                         params: AlgorithmParams, pctx: ParityCtx | None):
     """One iteration: black propagation, black refinement, red
     propagation, red refinement. Returns step(state, generator)."""
     def step(state: PlaneState, generator: torch.Generator) -> PlaneState:
@@ -289,21 +334,53 @@ def make_patchmatch_step(cost_fn, cams: geo.CameraSet,
     return step
 
 
+def _make_cost_and_ctx(stats, cams: geo.CameraSet, height: int, width: int,
+                       eval_cost, compress):
+    """cost_fn(normal, d, parity) -> MultiviewCost and the ParityCtx of the
+    packed passes, from eval_cost(normal, d, stats, parity) and the stats'
+    parity compressor; with odd sides a dense-only cost_fn and pctx None."""
+    if not cb.parity_compressible(height, width):
+        def dense_cost_fn(normal, d, parity=None):
+            return eval_cost(normal, d, stats, None)
+        return dense_cost_fn, None
+    stats_p = {None: stats, 0: compress(stats, 0), 1: compress(stats, 1)}
+    pctx = make_parity_ctx(stats_p, cams, height, width)
+
+    def cost_fn(normal, d, parity=None):
+        return eval_cost(normal, d, stats_p[parity], parity)
+    return cost_fn, pctx
+
+
 def make_svolume_cost_fn(stats: ncc.RefStats, cams: geo.CameraSet,
                          height: int, width: int, vol: sv.SVolume,
                          ids: torch.Tensor, params: AlgorithmParams):
     """cost_fn(normal, d, parity) -> MultiviewCost on the s-volume, with
     parity None the dense grid and 0/1 the packed classes; and the
-    ParityCtx of the packed passes."""
-    stats_p = {None: stats, 0: ncc.compress_stats(stats, 0),
-               1: ncc.compress_stats(stats, 1)}
-    pctx = make_parity_ctx(stats_p, cams, height, width)
-
-    def cost_fn(normal, d, parity=None):
-        return sv.multiview_cost_svolume(vol, ids, normal, d,
-                                         stats_p[parity], params,
+    ParityCtx of the packed passes (None for odd sides)."""
+    def eval_cost(normal, d, st, parity):
+        return sv.multiview_cost_svolume(vol, ids, normal, d, st, params,
                                          parity=parity)
-    return cost_fn, pctx
+    return _make_cost_and_ctx(stats, cams, height, width, eval_cost,
+                              ncc.compress_stats)
+
+
+def make_direct_cost_fn(stats, cams: geo.CameraSet, height: int,
+                        width: int, imgs: torch.Tensor, ids: torch.Tensor,
+                        params: AlgorithmParams):
+    """cost_fn and ParityCtx, as make_svolume_cost_fn, on the direct
+    sampler (kernel B3 on the card): imgs (V, H, W) grayscale with
+    ncc.RefStats, or (V, 3, H, W) colour with ncc_color.ColorRefStats,
+    index 0 the reference; ids the source positions."""
+    views = cuda_direct.make_views(imgs[ids], cams.A[ids], cams.b[ids], ids)
+    color = isinstance(stats, ncc_color.ColorRefStats)
+
+    def eval_cost(normal, d, st, parity):
+        s0, sx, sy = ncc.plane_scalars(normal, d, st)
+        return cuda_direct.multiview_cost_direct(views, s0, sx, sy, st,
+                                                 params, parity)
+    return _make_cost_and_ctx(
+        stats, cams, height, width, eval_cost,
+        ncc_color.compress_stats_color if color else ncc.compress_stats)
 
 
 def run_patchmatch(generator: torch.Generator, imgs: torch.Tensor,
@@ -311,27 +388,39 @@ def run_patchmatch(generator: torch.Generator, imgs: torch.Tensor,
                    params: AlgorithmParams,
                    iterations: int | None = None,
                    init_state: PlaneState | None = None,
-                   svol_planes: tuple[int, ...] | None = None
-                   ) -> PlaneState:
-    """Random (or lifted) init plus N checkerboard iterations on the
-    s-volume. imgs (V, H, W) f32 with index 0 the reference. A lifted
-    `init_state` keeps its stored (coarse-level) costs: re-evaluating them
-    through this level's volume displaces the lifted planes."""
+                   svol_planes: tuple[int, ...] | None = None,
+                   imgs_color: torch.Tensor | None = None) -> PlaneState:
+    """Random (or lifted) init plus N checkerboard iterations. imgs (V, H,
+    W) f32 with index 0 the reference. With `color_processing` and
+    `imgs_color` (V, 3, H, W) the cost is the colour NCC on the direct
+    sampler; otherwise the sampler resolve_ncc_impl picks. Only the
+    s-volume path counts planes (`svol_planes` overrides) and builds
+    volumes. A lifted `init_state` keeps its stored (coarse-level) costs:
+    re-evaluating them through this level's volume displaces the lifted
+    planes."""
     H, W = imgs.shape[1:]
-    if not cb.parity_compressible(H, W):
-        raise ValueError(f"run_patchmatch needs even image sizes, got "
-                         f"{H}x{W}")
-    if svol_planes is None:
-        svol_planes = svolume_plane_counts(cams, view_ids, H, W, params)
-    stats = ncc.precompute_ref_stats(imgs[0], cams, params)
     idx = torch.as_tensor(list(view_ids), dtype=torch.int64,
                           device=imgs.device)
-    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
-                                       params.svolume_margin)
-    vol = sv.build_svolume(imgs[idx], cams.A[idx], cams.b[idx], s_lo, s_hi,
-                           svol_planes)
-    cost_fn, pctx = make_svolume_cost_fn(stats, cams, H, W, vol, idx,
-                                         params)
+    if params.color_processing and imgs_color is not None:
+        stats = ncc_color.precompute_ref_stats_color(imgs_color[0], cams,
+                                                     params)
+        cost_fn, pctx = make_direct_cost_fn(stats, cams, H, W, imgs_color,
+                                            idx, params)
+    elif resolve_ncc_impl(params) == "direct":
+        stats = ncc.precompute_ref_stats(imgs[0], cams, params)
+        cost_fn, pctx = make_direct_cost_fn(stats, cams, H, W, imgs, idx,
+                                            params)
+    else:
+        if svol_planes is None:
+            svol_planes = svolume_plane_counts(cams, view_ids, H, W, params)
+        stats = ncc.precompute_ref_stats(imgs[0], cams, params)
+        s_lo, s_hi = sv.s_range_for_depths(params.depth_min,
+                                           params.depth_max,
+                                           params.svolume_margin)
+        vol = sv.build_svolume(imgs[idx], cams.A[idx], cams.b[idx], s_lo,
+                               s_hi, svol_planes)
+        cost_fn, pctx = make_svolume_cost_fn(stats, cams, H, W, vol, idx,
+                                             params)
     state = init_state
     if state is None:
         state = random_init_with(generator, (H, W), cams, stats.rays,
@@ -417,25 +506,33 @@ def run_patchmatch_pyramid(generator: torch.Generator, imgs: torch.Tensor,
                            depth_min: float | None = None,
                            depth_max: float | None = None,
                            svol_planes_per_level: Sequence[
-                               tuple[int, ...] | None] | None = None
+                               tuple[int, ...] | None] | None = None,
+                           imgs_color: torch.Tensor | None = None
                            ) -> PlaneState:
     """Coarse-to-fine PatchMatch over `levels` (downsample factors, coarse
     to fine, the last 1). imgs (V, H, W) f32 on the device; P_list the raw
-    projections in pipeline order. Lifted levels narrow the first refine
-    scale (refine_dz0_frac_fine), use prop_banks_fine banks and keep
-    their coarse costs."""
+    projections in pipeline order; imgs_color (V, 3, H, W) the colour
+    images of `color_processing`, pyramided like imgs. Lifted levels
+    narrow the first refine scale (refine_dz0_frac_fine), use
+    prop_banks_fine banks and keep their coarse costs, on every
+    sampler."""
     if levels[-1] != 1:
         raise ValueError("the finest pyramid level must be 1")
     if iterations_per_level is None:
         iterations_per_level = iteration_schedule(params, len(levels))
     dmin = params.depth_min if depth_min is None else depth_min
     dmax = params.depth_max if depth_max is None else depth_max
+    color = params.color_processing and imgs_color is not None
     pyr = {1: imgs}
-    fac, cur = 1, imgs
+    pyr_c = {1: imgs_color if color else None}
+    fac, cur, cur_c = 1, imgs, pyr_c[1]
     while fac < max(levels):
         cur = downsample_2x(cur)
+        if color:
+            cur_c = downsample_2x(cur_c)
         fac *= 2
         pyr[fac] = cur
+        pyr_c[fac] = cur_c
 
     state = None
     for li, s in enumerate(levels):
@@ -451,5 +548,6 @@ def run_patchmatch_pyramid(generator: torch.Generator, imgs: torch.Tensor,
                   if svol_planes_per_level is not None else None)
         state = run_patchmatch(generator, imgs_s, view_ids, cams_s,
                                params_s, iterations=iterations_per_level[li],
-                               init_state=state, svol_planes=planes)
+                               init_state=state, svol_planes=planes,
+                               imgs_color=pyr_c[s])
     return state

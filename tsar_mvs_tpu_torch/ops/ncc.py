@@ -1,7 +1,13 @@
-"""Bilaterally weighted NCC: reference-side statistics, the streaming view
-aggregation and the reverse (confidence) cost. Port of the parts of
-``tsar_mvs_tpu.ops.ncc`` that the s-volume path uses; the forward cost
-itself lives in ``ops/svolume.py`` and its CUDA kernel.
+"""Bilaterally weighted NCC: reference-side statistics, the direct
+sampler's forward cost, the view aggregations and the reverse
+(confidence) cost (port of ``tsar_mvs_tpu.ops.ncc``). The s-volume
+sampler's forward cost lives in ``ops/svolume.py``; on the card both
+samplers' multi-view costs are kernels (B1 ``ops/cuda_ncc.py``, B3
+``ops/cuda_direct.py``) whose plain versions are built from this module.
+
+The direct cost evaluates the plane-induced warp in factored form,
+q = A p~ + (i a0 + j a1) - b s with s = n·ray(p + o) / d, and takes one
+bilinear gather of the bf16 4-corner-packed source per window sample.
 
 Cost definition (identical to the reference): for window W(p) with
 bilateral weights w_o = exp(-|o|/(2 s_spatial^2) - |I(p+o)-I(p)|/
@@ -14,14 +20,14 @@ well conditioned.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.geometry import CameraSet, pixel_grid, pixel_rays
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
-from tsar_mvs_tpu_torch.ops.sampling import (bilinear_sample,
+from tsar_mvs_tpu_torch.ops.sampling import (PackedImage, bilinear_sample,
                                              bilinear_sample_packed,
                                              pack_image,
                                              shift_with_edge_clamp)
@@ -91,6 +97,19 @@ def compress_stats(stats: RefStats, parity: int) -> RefStats:
         k0=stats.k0, k1=stats.k1)
 
 
+def plane_scalars(normal: torch.Tensor, d: torch.Tensor, stats
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(s0, sx, sy): s0 = n·ray/d and its exact window derivatives (stats:
+    RefStats or ncc_color.ColorRefStats)."""
+    inv_d = 1.0 / d
+    s0 = torch.sum(normal * stats.rays, dim=-1) * inv_d
+    sx = (normal[..., 0] * stats.k0[0] + normal[..., 1] * stats.k0[1]
+          + normal[..., 2] * stats.k0[2]) * inv_d
+    sy = (normal[..., 0] * stats.k1[0] + normal[..., 1] * stats.k1[1]
+          + normal[..., 2] * stats.k1[2]) * inv_d
+    return s0, sx, sy
+
+
 def ncc_epilogue(sum_src: torch.Tensor, sum_src_src: torch.Tensor,
                  sum_ref_src: torch.Tensor, stats: RefStats,
                  params: AlgorithmParams) -> torch.Tensor:
@@ -103,6 +122,60 @@ def ncc_epilogue(sum_src: torch.Tensor, sum_src_src: torch.Tensor,
     cost = torch.clamp(ncc_cost, 0.0, params.cost_max)
     low_var = (stats.var_ref < params.min_var) | (var_src < params.min_var)
     return torch.where(low_var, params.cost_max, cost)
+
+
+def direct_cost(src: Sequence[PackedImage], A: torch.Tensor,
+                b: torch.Tensor, s0: torch.Tensor, sx: torch.Tensor,
+                sy: torch.Tensor, stats, params: AlgorithmParams,
+                coords=None) -> torch.Tensor:
+    """Direct-sampler cost of plane scalars (s0, sx, sy) (..., Hc, Wc)
+    against one source view with warp factors A = K_s R K_ref^-1 (3, 3) and
+    b = K_s t (3,). `src` holds the view's channels as bf16 PackedImages:
+    one with RefStats, three with ncc_color.ColorRefStats, whose moments
+    run over (offset, channel). `coords=(xx, yy)` are the output
+    positions' reference-pixel coordinates (default the dense grid of
+    `stats`). A candidate whose plane coordinate is non-finite at any
+    offset (d = 0 padding) costs cost_max. This is kernel B3's arithmetic
+    per view, in its order."""
+    if coords is None:
+        Hc, Wc = stats.mean_ref.shape
+        xx = torch.arange(Wc, dtype=torch.float32, device=s0.device)[None, :]
+        yy = torch.arange(Hc, dtype=torch.float32, device=s0.device)[:, None]
+    else:
+        xx, yy = coords
+    color = len(src) > 1
+    centers = list(stats.center) if color else [stats.center]
+    Ap = [A[r, 0] * xx + A[r, 1] * yy + A[r, 2] for r in range(3)]
+    acc_s = acc_ss = acc_rs = torch.zeros_like(s0)
+    bad = torch.zeros(s0.shape, dtype=torch.bool, device=s0.device)
+    for o, (i, j) in enumerate(window_offsets(params)):
+        s = s0 + float(i) * sx + float(j) * sy
+        bad = bad | ~torch.isfinite(s)
+        qx = (Ap[0] + (float(i) * A[0, 0] + float(j) * A[0, 1])) - b[0] * s
+        qy = (Ap[1] + (float(i) * A[1, 0] + float(j) * A[1, 1])) - b[1] * s
+        qz = (Ap[2] + (float(i) * A[2, 0] + float(j) * A[2, 1])) - b[2] * s
+        inv_qz = 1.0 / qz
+        w = stats.weights[o]
+        for c, packed in enumerate(src):
+            smp = bilinear_sample_packed(packed, qx * inv_qz,
+                                         qy * inv_qz) - centers[c]
+            ws = w * smp
+            acc_s = acc_s + ws
+            acc_ss = acc_ss + ws * smp
+            acc_rs = acc_rs + ws * (stats.ref_centered[o, c] if color
+                                    else stats.ref_centered[o])
+    cost = ncc_epilogue(acc_s, acc_ss, acc_rs, stats, params)
+    return torch.where(bad, params.cost_max, cost)
+
+
+def pm_cost_ab(src_img: PackedImage, A: torch.Tensor, b: torch.Tensor,
+               normal: torch.Tensor, d: torch.Tensor, stats: RefStats,
+               params: AlgorithmParams, coords=None) -> torch.Tensor:
+    """NCC cost of the plane field (normal (..., Hc, Wc, 3), d (..., Hc,
+    Wc)) against one source view, packed in bf16 (pack_image(...,
+    torch.bfloat16)); `coords` as in direct_cost. Returns (..., Hc, Wc)."""
+    s0, sx, sy = plane_scalars(normal, d, stats)
+    return direct_cost((src_img,), A, b, s0, sx, sy, stats, params, coords)
 
 
 class MultiviewCost(NamedTuple):
@@ -134,6 +207,58 @@ def aggregate_streaming(per_view, ids: torch.Tensor) -> MultiviewCost:
     best_view = torch.where(any_valid, ids.to(best.device)[bidx], -1)
     return MultiviewCost(cost=best, best_view=best_view.to(torch.int32),
                          ratio=ratio)
+
+
+def aggregate_view_costs(costs: torch.Tensor, ids: torch.Tensor,
+                         params: AlgorithmParams) -> MultiviewCost:
+    """Best-n aggregation over the leading view axis of costs (V, ...):
+    cost = mean of the best min(n_best, #valid) view costs (a view is
+    valid below MAXCOST), MAXCOST with no valid view; ratio = sorted[0] /
+    sorted[1] (sorted[0] with one view), 0 with no valid view; best_view =
+    the id of the first argmin, -1 with no valid view. n_best == 1 is the
+    streaming top-2. The sum runs in sorted order, one view at a time, as
+    kernel B3 keeps it."""
+    V = costs.shape[0]
+    ids = ids.to(costs.device)
+    if params.n_best == 1:
+        return aggregate_streaming([lambda k=k: costs[k] for k in range(V)],
+                                   ids)
+    sorted_costs = torch.sort(costs, dim=0).values
+    num_valid = torch.sum(costs < MAXCOST, dim=0)
+    num_best = torch.clamp(num_valid, max=params.n_best)
+    best_sum = sorted_costs[0] * (num_best > 0)
+    for k in range(1, V):
+        best_sum = best_sum + sorted_costs[k] * (num_best > k)
+    any_valid = num_best > 0
+    cost = torch.where(any_valid,
+                       best_sum / torch.clamp(num_best, min=1).to(
+                           costs.dtype), MAXCOST)
+    second = sorted_costs[1] if V > 1 else sorted_costs[0]
+    ratio = torch.where(any_valid, sorted_costs[0] / second, 0.0)
+    best_view = torch.where(any_valid, ids[torch.argmin(costs, dim=0)], -1)
+    return MultiviewCost(cost=cost, best_view=best_view.to(torch.int32),
+                         ratio=ratio)
+
+
+def aggregate(per_view, ids: torch.Tensor,
+              params: AlgorithmParams) -> MultiviewCost:
+    """Aggregate per-view cost thunks: streaming top-2 for n_best == 1,
+    else the stacked best-n of aggregate_view_costs."""
+    if params.n_best == 1:
+        return aggregate_streaming(per_view, ids)
+    return aggregate_view_costs(torch.stack([f() for f in per_view]), ids,
+                                params)
+
+
+def multiview_cost(src_imgs, view_ids: Sequence[int], cams: CameraSet,
+                   normal: torch.Tensor, d: torch.Tensor, stats: RefStats,
+                   params: AlgorithmParams, coords=None) -> MultiviewCost:
+    """Direct-sampler multi-view cost (pmCostMultiview_cu): src_imgs[v] is
+    view v's bf16 PackedImage, view_ids the source views."""
+    per_view = [lambda v=v: pm_cost_ab(src_imgs[v], cams.A[v], cams.b[v],
+                                       normal, d, stats, params, coords)
+                for v in view_ids]
+    return aggregate(per_view, torch.as_tensor(list(view_ids)), params)
 
 
 def rl_cost_fused(ref_img: torch.Tensor, src_imgs: torch.Tensor,

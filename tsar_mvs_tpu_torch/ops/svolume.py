@@ -24,7 +24,7 @@ import torch
 
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.ops import cuda_ncc, cuda_warp
-from tsar_mvs_tpu_torch.ops.ncc import MultiviewCost, RefStats
+from tsar_mvs_tpu_torch.ops.ncc import MultiviewCost, RefStats, plane_scalars
 
 
 class SVolume(NamedTuple):
@@ -103,18 +103,6 @@ def build_svolume(src_imgs: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
         inv_ds.append(float(np.float32(1.0 / ds)))
     return SVolume(data=tuple(data), s_lo=float(np.float32(s_lo)),
                    inv_ds=tuple(inv_ds))
-
-
-def plane_scalars(normal: torch.Tensor, d: torch.Tensor, stats: RefStats
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(s0, sx, sy): s0 = n·ray/d and its exact window derivatives."""
-    inv_d = 1.0 / d
-    s0 = torch.sum(normal * stats.rays, dim=-1) * inv_d
-    sx = (normal[..., 0] * stats.k0[0] + normal[..., 1] * stats.k0[1]
-          + normal[..., 2] * stats.k0[2]) * inv_d
-    sy = (normal[..., 0] * stats.k1[0] + normal[..., 1] * stats.k1[1]
-          + normal[..., 2] * stats.k1[2]) * inv_d
-    return s0, sx, sy
 
 
 def multiview_cost_svolume(vol: SVolume, ids: torch.Tensor,

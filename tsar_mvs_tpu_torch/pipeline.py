@@ -15,9 +15,10 @@
     <scene>/results/TSAR_fused.ply            fused scene cloud
 
 Per view: weak-texture detection and SLIC on the host, then either the
-lifted APD prior (PatchMatch only when asked for) or the coarse-to-fine
-PatchMatch pyramid on the device, TSAR refinement, artifacts. A scene is
-the views one after another, then fusion.
+lifted APD prior (PatchMatch only when asked for, grayscale) or the
+coarse-to-fine PatchMatch pyramid on the device (on the colour images
+under -color_processing), TSAR refinement, artifacts. A scene is the views
+one after another, then fusion.
 """
 
 from __future__ import annotations
@@ -54,10 +55,29 @@ class Scene:
     depth_min: float
     depth_max: float
     pair: scene_io.PairFile
+    # (V, 3, H, W) float32 RGB, loaded on first use by -color_processing
+    # (the reference loads img_color only then too, main.cpp:1303-1306).
+    images_color: np.ndarray | None = None
     images_dir: Path | None = None
     # Scene-shared plane counts per (level scale, n_src), filled by
     # scene_plane_counts.
     _svol_counts_cache: dict | None = None
+
+    def load_color(self) -> np.ndarray:
+        if self.images_color is None:
+            self.images_color = np.stack(
+                [_read_rgb(self._image_path(n)) for n in self.names])
+        return self.images_color
+
+    def _image_path(self, name: str) -> Path:
+        """The file load_scene read view `name` from (the first suffix in
+        sorted order)."""
+        img_dir = self.images_dir or self.root / "images"
+        found = sorted(p for p in img_dir.iterdir()
+                       if p.stem == name and p.suffix in IMAGE_SUFFIXES)
+        if not found:
+            raise FileNotFoundError(name)
+        return found[0]
 
 
 def load_scene(root: str | Path, images_folder: str | Path | None = None,
@@ -121,6 +141,19 @@ def _read_gray(path: Path) -> np.ndarray:
     return np.asarray(Image.open(path).convert("L"), np.float32)
 
 
+def _read_rgb(path: Path) -> np.ndarray:
+    """(3, H, W) float32 RGB (IMREAD_COLOR analogue, main.cpp:1305); a
+    grayscale source gives three equal channels."""
+    if path.suffix == ".pfm":
+        img = np.asarray(read_pfm(path), np.float32)
+        if img.ndim == 2:
+            return np.repeat(img[None], 3, axis=0)
+        return np.ascontiguousarray(img.transpose(2, 0, 1)[:3])
+    from PIL import Image
+    arr = np.asarray(Image.open(path).convert("RGB"), np.float32)
+    return np.ascontiguousarray(arr.transpose(2, 0, 1))
+
+
 def view_image_order(scene: Scene, ref_idx: int, max_views: int,
                      min_angle: float = 5.0, max_angle: float = 45.0
                      ) -> tuple[list[int], tuple[int, ...]]:
@@ -169,10 +202,12 @@ def pyramid_levels_for(height: int) -> tuple[int, ...]:
 
 def scene_plane_counts(scene: Scene, params: AlgorithmParams,
                        levels: tuple[int, ...], n_src: int
-                       ) -> list[tuple[int, ...]]:
+                       ) -> list[tuple[int, ...] | None]:
     """Scene-shared s-volume plane counts per pyramid level (max over all
     reference views with n_src sources, budget re-applied), cached on the
-    Scene."""
+    Scene; None per level off the s-volume path."""
+    if params.color_processing or pm.resolve_ncc_impl(params) != "svolume":
+        return [None] * len(levels)
     H, W = scene.images.shape[1:]
     if scene._svol_counts_cache is None:
         scene._svol_counts_cache = {}
@@ -322,6 +357,10 @@ def process_view(scene: Scene, ref_idx: int,
     else:
         iters = params.iterations if pm_iterations is None else pm_iterations
         levels = pyramid_levels_for(imgs.shape[1])
+        imgs_color = None
+        if params.color_processing:
+            imgs_color = torch.as_tensor(scene.load_color()[order],
+                                         dtype=torch.float32, device=device)
         state = pm.run_patchmatch_pyramid(
             generator, imgs, view_ids, [scene.P[i] for i in order], params,
             levels=levels,
@@ -329,7 +368,8 @@ def process_view(scene: Scene, ref_idx: int,
                 dataclasses.replace(params, iterations=iters), len(levels)),
             depth_min=scene.depth_min, depth_max=scene.depth_max,
             svol_planes_per_level=scene_plane_counts(scene, params, levels,
-                                                     len(view_ids)))
+                                                     len(view_ids)),
+            imgs_color=imgs_color)
     mark("patchmatch")
     result = tsar.tsar_refine(imgs, cams, view_ids, params, state, weak,
                               generator, timer=mark,
@@ -353,7 +393,10 @@ def process_view(scene: Scene, ref_idx: int,
         cams_world = geo.build_camera_set([scene.P[i] for i in order],
                                           cam_scale=params.cam_scale,
                                           rebase=False, device="cpu")
-        write_view_ply(out_dir / "TSAR_model.ply", result, gray, cams_world)
+        rgb = (scene.load_color()[ref_idx] if params.color_processing
+               else None)
+        write_view_ply(out_dir / "TSAR_model.ply", result, gray, cams_world,
+                       rgb=rgb)
     if write_vis:
         display.write_png(out_dir / "TSAR_normals.png",
                           display.add_sphere_legend(
@@ -376,9 +419,11 @@ def process_view(scene: Scene, ref_idx: int,
 
 
 def write_view_ply(path: Path, result: tsar.TsarResult, gray: np.ndarray,
-                   cams_world: geo.CameraSet) -> None:
+                   cams_world: geo.CameraSet,
+                   rgb: np.ndarray | None = None) -> None:
     """Per-view point cloud in the world frame: every pixel emits a
-    vertex; invalid depths become the origin."""
+    vertex; invalid depths become the origin. Vertex colours are the gray
+    image, or `rgb` (3, H, W) under -color_processing."""
     H, W = result.depth.shape
     xx, yy = np.meshgrid(np.arange(W, dtype=np.float32),
                          np.arange(H, dtype=np.float32))
@@ -387,7 +432,11 @@ def write_view_ply(path: Path, result: tsar.TsarResult, gray: np.ndarray,
                         torch.as_tensor(result.depth)).numpy()
     bad = ~np.isfinite(X).all(axis=-1) | (result.depth <= 0)
     X = np.where(bad[..., None], 0.0, X)
-    colors = np.clip(gray, 0, 255).astype(np.uint8).reshape(-1)
+    if rgb is not None:
+        colors = np.clip(rgb, 0, 255).astype(np.uint8).transpose(
+            1, 2, 0).reshape(-1, 3)
+    else:
+        colors = np.clip(gray, 0, 255).astype(np.uint8).reshape(-1)
     ply.write_ply(path, X.reshape(-1, 3),
                   result.normal_world.reshape(-1, 3), colors)
 
