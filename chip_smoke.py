@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one line each; any failure exits non-zero without the final
-line:
+line (the 2K scene renders in one spawned process per view):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
    no CUDA device is a failure;
 2. build the CUDA kernels from csrc/ (timed);
@@ -67,7 +67,26 @@ line:
        its input;
    (e) images whose pyramid level 2 has an odd side: view 0 of
        make_scene(500, 750) on both samplers, each within 0.02 acc2_pm
-       of the same run at 500x752.
+       of the same run at 500x752;
+9. the view-sharded scene (tsar_mvs_tpu_torch/parallel/):
+   (a) process_scene_sharded on a fresh copy of the 1344x2048x8 scene,
+       world 1 in an NCCL group: per-phase seconds (A-F), peak memory,
+       B1 launched once per cost evaluation and B2 once per volume of
+       every view (8 x phase 5's counts), B3 never, every view's acc2_pm
+       and acc2_final (both must reach 0.95), the fused cloud's F1@2cm
+       (must reach 0.94) beside phase 6's sequential points and F1;
+   (b) two spawned ranks sharing the card in a gloo group against world 1
+       on the card, make_scene(336, 512, num_views=4), on the s-volume
+       and the direct sampler: depths and normals bit-equal, fused point
+       counts equal, every rank on cuda and launching its sampler's
+       kernels (B1 and B2, or B3);
+   (c) the batched runner's call sites of B1, B2 and B3 (batch_sampler,
+       make_batch_cost_fn) on both scenes, at every pyramid level with
+       the inputs the sharded path gives them (warp factors scaled per
+       level, plane counts shared over the batch), one reference a level
+       and one of them with a padding slot, on both samplers, both
+       parities and dense: each against its plain version on the same
+       inputs, at the bounds of phases 3, 4 and 8(a).
 
 Then PatchMatch's seconds split into B1, B2 and the rest (profiler),
 one JSON line of per-kernel results (the top-level numbers of a kernel
@@ -136,6 +155,84 @@ def check_warp(scene, params, dev) -> dict:
     return res
 
 
+def b1_agreement(mk, mp, invalid, params) -> tuple[dict, bool]:
+    """Phase 4's bounds on a B1 result `mk` against its plain version `mp`
+    on the same inputs, `invalid` the candidates with d = 0: on the pixels
+    where either cost is below 0.99 (more than 30% of them) median |delta|
+    < 5e-4 and q99 < 5e-3; under 1% of all pixels off by more than 0.1;
+    invalid candidates exactly cost_max with view -1 and ratio 0; the
+    ratio within 1e-3 on 99.9% of the pixels; the best view equal wherever
+    the costs agree and there is no tie."""
+    import torch
+    ck, cp = mk.cost, mp.cost
+    delta = (ck - cp).abs()
+    sharp = (torch.minimum(ck, cp) < 0.99) & ~invalid
+    ds_ = delta[sharp] if sharp.any() else delta.new_full((1,), 1.0)
+    r_delta = (mk.ratio - mp.ratio).abs()
+    untied = (ck == cp) & (mp.ratio != 1.0)
+    r = {"sharp_frac": float(sharp.float().mean()),
+         "median": float(torch.quantile(ds_[:1 << 24], 0.5)),
+         "q99": float(torch.quantile(ds_[:1 << 24], 0.99)),
+         "max_sharp": float(ds_.max()), "max": float(delta.max()),
+         "frac_gt_0.1": float((delta > 0.1).float().mean()),
+         "invalid_exact": bool(
+             (ck[invalid] == params.cost_max).all()
+             and (cp[invalid] == params.cost_max).all()
+             and (mk.best_view[invalid] == -1).all()
+             and (mk.ratio[invalid] == 0).all()),
+         "ratio_max": float(r_delta.max()),
+         "ratio_frac_gt_1e-3": float((r_delta > 1e-3).float().mean()),
+         "best_view_mismatches": int(
+             (mk.best_view[untied] != mp.best_view[untied]).sum())}
+    ok = (r["median"] < 5e-4 and r["q99"] < 5e-3
+          and r["frac_gt_0.1"] < 0.01 and r["invalid_exact"]
+          and r["sharp_frac"] > 0.3 and r["ratio_frac_gt_1e-3"] < 1e-3
+          and r["best_view_mismatches"] == 0)
+    return r, ok
+
+
+def b3_agreement(mk, mp, invalid, params) -> tuple[dict, bool]:
+    """Phase 8(a)'s bounds on a B3 result against its plain version: cost
+    and ratio within 1e-3, the best view equal off ties, invalid
+    candidates exactly cost_max with view -1, a valid view on more than
+    30% of the pixels."""
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    untied = (mk.cost == mp.cost) & (mp.ratio != 1.0)
+    r = {"max": kt.max_abs_diff(mk.cost, mp.cost),
+         "ratio_max": kt.max_abs_diff(mk.ratio, mp.ratio),
+         "best_view_mismatches": int(
+             (mk.best_view[untied] != mp.best_view[untied]).sum()),
+         "invalid_exact": bool(
+             (mk.cost[invalid] == params.cost_max).all()
+             and (mp.cost[invalid] == params.cost_max).all()
+             and (mk.best_view[invalid] == -1).all()),
+         "valid_frac": float((mk.best_view >= 0).float().mean())}
+    ok = (r["max"] <= 1e-3 and r["ratio_max"] <= 1e-3
+          and not r["best_view_mismatches"] and r["invalid_exact"]
+          and r["valid_frac"] > 0.3)
+    return r, ok
+
+
+def b2_agreement(vol, plain) -> dict:
+    """Phase 3's bounds on a B2 volume against its plain version, counted
+    a plane block at a time (no sort of the whole volume): median |delta|
+    0 (at most half the voxels differ), q99.9 <= 1 (at most 0.1% differ
+    by more than 1 intensity level) and max <= 2."""
+    nonzero = above_1 = 0
+    worst = 0.0
+    for k in range(0, vol.shape[0], 16):
+        d = (vol[k:k + 16].float() - plain[k:k + 16].float()).abs()
+        nonzero += int((d > 0).sum())
+        above_1 += int((d > 1.0).sum())
+        worst = max(worst, float(d.max()))
+    n = vol.numel()
+    r = {"planes": int(vol.shape[0]), "frac_nonzero": nonzero / n,
+         "frac_gt_1": above_1 / n, "max": worst}
+    r["pass"] = (r["frac_nonzero"] < 0.5 and r["frac_gt_1"] <= 1e-3
+                 and worst <= 2.0)
+    return r
+
+
 def check_ncc(lv: dict, gt: dict) -> float:
     """Kernel B1 against its plain version on one level's inputs
     (`kernel_times.level_inputs`): all source views in one launch, 8
@@ -183,34 +280,10 @@ def check_ncc(lv: dict, gt: dict) -> float:
             mk = cuda_ncc.multiview_cost(*args)
             launches = cuda_ncc.LAUNCHES - before
             mp = cuda_ncc.multiview_cost_plain(*args)
-            ck, cp = mk.cost, mp.cost
-            delta = (ck - cp).abs()
-            sharp = (torch.minimum(ck, cp) < 0.99) & ~inv_p
-            ds_ = delta[sharp]
-            r_delta = (mk.ratio - mp.ratio).abs()
-            untied = (ck == cp) & (mp.ratio != 1.0)
+            agree, ok = b1_agreement(mk, mp, inv_p, params)
             r = {"field": field, "parity": parity, "window": list(window),
-                 "launches": launches,
-                 "sharp_frac": float(sharp.float().mean()),
-                 "median": float(torch.quantile(ds_[:1 << 24], 0.5)),
-                 "q99": float(torch.quantile(ds_[:1 << 24], 0.99)),
-                 "max_sharp": float(ds_.max()), "max": float(delta.max()),
-                 "frac_gt_0.1": float((delta > 0.1).float().mean()),
-                 "invalid_exact": bool(
-                     (ck[inv_p] == params.cost_max).all()
-                     and (cp[inv_p] == params.cost_max).all()
-                     and (mk.best_view[inv_p] == -1).all()
-                     and (mk.ratio[inv_p] == 0).all()),
-                 "ratio_max": float(r_delta.max()),
-                 "ratio_frac_gt_1e-3": float((r_delta > 1e-3).float()
-                                             .mean()),
-                 "best_view_mismatches": int(
-                     (mk.best_view[untied] != mp.best_view[untied]).sum())}
-            ok = (r["median"] < 5e-4 and r["q99"] < 5e-3
-                  and r["frac_gt_0.1"] < 0.01 and r["invalid_exact"]
-                  and r["sharp_frac"] > 0.3 and launches == 1
-                  and r["ratio_frac_gt_1e-3"] < 1e-3
-                  and r["best_view_mismatches"] == 0)
+                 "launches": launches, **agree}
+            ok = ok and launches == 1
             worst = max(worst, r["max"])
             print(f"B1 ncc vs plain: {json.dumps(r)} -> "
                   f"{'PASS' if ok else 'FAIL'}", flush=True)
@@ -274,22 +347,11 @@ def check_direct(lv: dict, gt: dict) -> float:
         mk = cuda_direct.multiview_cost_direct(*args)
         launches = cuda_direct.LAUNCHES - before
         mp = cuda_direct.multiview_cost_direct_plain(*args)
-        untied = (mk.cost == mp.cost) & (mp.ratio != 1.0)
+        agree, ok = b3_agreement(mk, mp, invalid, params)
         r = {"field": field, "C": C, "parity": parity, "n_best": n_best,
              "channels": 3 if color else 1, "window": list(window),
-             "launches": launches,
-             "max": kt.max_abs_diff(mk.cost, mp.cost),
-             "ratio_max": kt.max_abs_diff(mk.ratio, mp.ratio),
-             "best_view_mismatches": int(
-                 (mk.best_view[untied] != mp.best_view[untied]).sum()),
-             "invalid_exact": bool(
-                 (mk.cost[invalid] == params.cost_max).all()
-                 and (mp.cost[invalid] == params.cost_max).all()
-                 and (mk.best_view[invalid] == -1).all()),
-             "valid_frac": float((mk.best_view >= 0).float().mean())}
-        ok = (r["max"] <= 1e-3 and r["ratio_max"] <= 1e-3
-              and not r["best_view_mismatches"] and r["invalid_exact"]
-              and launches == 1 and r["valid_frac"] > 0.3)
+             "launches": launches, **agree}
+        ok = ok and launches == 1
         ok_all &= ok
         worst = max(worst, r["max"])
         cases.append({**r, "pass": ok})
@@ -692,6 +754,387 @@ def run_odd_phase(dev) -> dict:
     return runs
 
 
+# Phase 9(b): two ranks sharing the card under gloo, on a scene of this
+# size and view count, on both samplers.
+SHARDED_SMALL, SHARDED_SMALL_VIEWS = (336, 512), 4
+SHARDED_IMPLS = ("svolume", "direct")
+
+
+def copy_scene(root: Path, dest: Path) -> Path:
+    """A fresh scene root with `root`'s images/, cams/ and pair.txt (no
+    results), so an earlier phase's artifacts stay as they are."""
+    dest.mkdir(parents=True)
+    for sub in ("images", "cams"):
+        shutil.copytree(root / sub, dest / sub)
+    shutil.copy(root / "pair.txt", dest / "pair.txt")
+    return dest
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_sharded_phase(scene_gt, root: Path, dev, evaluations: int,
+                      builds: int, sequential: dict) -> dict:
+    """Phase 9(a): process_scene_sharded on a copy of the 2K scene, world 1
+    in an NCCL group on `dev`: per-phase seconds, peak memory, launches
+    (B1 once per cost evaluation and B2 once per volume of every view, B3
+    never), per-view acc2_pm and acc2_final, the fused cloud's F1@2cm
+    beside phase 6's sequential points and F1."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tsar_mvs_tpu_torch import eval as ev
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.config import AlgorithmParams, FusionParams
+    from tsar_mvs_tpu_torch.parallel import mesh as pmesh
+    from tsar_mvs_tpu_torch.parallel import scene_sharded
+    from tsar_mvs_tpu_torch.utils import ply
+    from tsar_mvs_tpu_torch.utils.synthetic import gt_cloud
+    sroot = copy_scene(root, root.parent / "scene_sharded")
+    scene = pipeline.load_scene(sroot)
+    V = len(scene.names)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = pmesh.view_mesh(dev)
+        stages: dict[str, float] = {}
+        pm_depths: dict[int, object] = {}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timer = stage_timer(stages)
+        reset_launches()
+        t0 = time.perf_counter()
+        depths, _, cloud = scene_sharded.process_scene_sharded(
+            scene, AlgorithmParams(), FusionParams(), seed=0, mesh=mesh,
+            timer=timer, pm_depths=pm_depths)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    acc2_pm = [acc2_for(scene_gt, scene, r, pm_depths[r])["textured"]
+               for r in range(V)]
+    acc2_final = [acc2_for(scene_gt, scene, r, depths[r])["textured"]
+                  for r in range(V)]
+    pts = cloud.points[np.isfinite(cloud.points).all(1)
+                       & (np.abs(cloud.points) > 1e-9).any(1)]
+    fs = ev.point_cloud_fscore(pts, gt_cloud(scene_gt), threshold=0.02)
+    fused = sroot / "results" / "TSAR_fused.ply"
+    written = all((sroot / "results" / n / f).exists() for n in scene.names
+                  for f in ("TSAR_disp.dmb", "TSAR_normals.dmb"))
+    res = {"world": mesh.world, "backend": backend,
+           "device": str(mesh.device), "seconds": seconds, "stages": stages,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "acc2_pm": {"min": min(acc2_pm), "mean": float(np.mean(acc2_pm)),
+                       "per_view": acc2_pm},
+           "acc2_final": {"min": min(acc2_final),
+                          "mean": float(np.mean(acc2_final)),
+                          "per_view": acc2_final},
+           "points": int(cloud.points.shape[0]),
+           "ply_points": int(ply.read_ply(fused)[0].shape[0])
+           if fused.exists() else None,
+           "f1": fs.f1, "precision": fs.precision, "recall": fs.recall,
+           "sequential_points": sequential["points"],
+           "sequential_f1": sequential["f1"], "artifacts_written": written}
+    print(f"sharded scene (phase 9a): {json.dumps(res)}", flush=True)
+    expect = {"ncc": V * evaluations, "warp": V * builds, "direct": 0}
+    if launches != expect:
+        raise SystemExit(f"sharded scene: launches {launches}, expected "
+                         f"{expect}")
+    if not written or res["ply_points"] != res["points"]:
+        raise SystemExit("sharded scene: artifacts missing or the fused "
+                         "PLY disagrees with the cloud")
+    if fs.f1 < 0.94 or min(acc2_pm) < 0.95 or min(acc2_final) < 0.95:
+        raise SystemExit(f"sharded scene below its limits: F1 {fs.f1}, "
+                         f"acc2_pm {acc2_pm}, acc2_final {acc2_final}")
+    return res
+
+
+def site_fields(gt_depth, gt_normal, R, cams, stats, level: int,
+                gen) -> list:
+    """(field, normal, d, invalid) of 8 candidates a pixel for phase 9(c),
+    in the frame of a reference with world rotation R and the true depth
+    and world normal maps gt_depth, gt_normal: "smooth", the truth at
+    this level with the depth within +-0.5% and the normal within +-1/16
+    (as kernel_times.smooth_field perturbs); "random",
+    kernel_times.random_field. The last candidate is invalid (d = 0)
+    everywhere, the first on 10% of the pixels."""
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    C, rays = 8, stats.rays
+    Hs, Ws = rays.shape[:2]
+    dev = rays.device
+    depth = np.asarray(gt_depth, np.float32)[::level, ::level][:Hs, :Ws]
+    normal = (np.asarray(gt_normal, np.float32)[::level, ::level][:Hs, :Ws]
+              @ np.asarray(R, np.float32).T)
+    seen = np.isfinite(depth) & np.isfinite(normal).all(-1)
+    depth = np.where(seen, depth, np.float32(np.median(depth[seen])))
+    normal = np.where(seen[..., None], normal,
+                      np.float32([0.0, 0.0, -1.0]))
+    depth = torch.as_tensor(depth, device=dev) * (1.0 + 0.005 * (
+        2.0 * torch.rand((C, Hs, Ws), generator=gen, device=dev) - 1.0))
+    dn = (2.0 * torch.rand((C, Hs, Ws, 3), generator=gen, device=dev)
+          - 1.0) / 16.0
+    n = geo.hemisphere_flip(
+        geo.normalize(torch.as_tensor(normal, device=dev) + dn),
+        geo.view_vectors(cams, Hs, Ws))
+    lv = {"cams": cams, "stats": stats, "imgs": rays[None, ..., 0]}
+    out = []
+    for field, (n, d) in (("smooth", (n, geo.plane_d_from_depth(n, rays,
+                                                                depth))),
+                          ("random", kt.random_field(lv, C, gen))):
+        invalid = torch.zeros((C, Hs, Ws), dtype=torch.bool, device=dev)
+        invalid[-1] = True
+        invalid[0] = torch.rand((Hs, Ws), generator=gen, device=dev) < 0.1
+        out.append((field, n, torch.where(invalid, 0.0, d), invalid))
+    return out
+
+
+def check_batch_sites(scene, scene_gt, dev, cut: int, label: str) -> dict:
+    """Phase 9(c): the batched runner's call sites of B1, B2 and B3
+    (models/patchmatch.py batch_sampler and make_batch_cost_fn) against
+    the kernels' plain versions on the same inputs, at every pyramid level
+    of process_scene_sharded on `scene`, with the inputs that path gives
+    them (parallel/mesh.py pyramid_level_inputs: the warp factors scaled
+    to the level, the plane counts shared over the full batch). One
+    reference a level, the first to the last; at level index `cut` its
+    source list loses its last source, so its row has a padding slot that
+    the view tables must drop. Per level and sampler: the views are the
+    valid slots' image ids, each volume has its slot's shared plane count
+    and meets phase 3's bounds against build_svolume_view_plain
+    (b2_agreement); the cost function on site_fields meets phase 4's
+    bounds against multiview_cost_plain on the site's volumes, or phase
+    8(a)'s against multiview_cost_direct_plain on its views (the smooth
+    field on both parities and dense, the random one on parity 0); one
+    launch a volume and one a cost evaluation. Prints one line; returns
+    the largest |delta| of each kernel by wrapper key."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch.ops import checkerboard as cb
+    from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp, ncc
+    from tsar_mvs_tpu_torch.ops import svolume as sv
+    from tsar_mvs_tpu_torch.parallel import mesh as pmesh
+    from tsar_mvs_tpu_torch.parallel import scene_sharded
+    t0 = time.perf_counter()
+    params = pipeline.default_params_for_scene(scene, AlgorithmParams())
+    V, H = len(scene.names), scene.images.shape[1]
+    levels = pipeline.pyramid_levels_for(H)
+    refs = [li * (V - 1) // max(1, len(levels) - 1)
+            for li in range(len(levels))]
+    batch = scene_sharded.scene_batch(scene, params, dev)
+    imgs = torch.as_tensor(scene.images, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases, ok_all = [], True
+    worst = {"ncc": 0.0, "warp": 0.0, "direct": 0.0}
+    for lv in pmesh.pyramid_level_inputs(imgs, batch, params, levels,
+                                         list(scene.P), scene.depth_min,
+                                         scene.depth_max):
+        level, r = levels[lv.index], refs[lv.index]
+        row = pmesh.batch_rows(lv.batch, slice(r, r + 1))
+        if lv.index == cut:
+            srcs = batch.src_ids[r][batch.src_valid[r]].tolist()
+            row = pm.build_scene_batch(list(scene.P), [r], [srcs[:-1]],
+                                       batch.src_ids.shape[1], device=dev)
+            if level != 1:
+                row = pmesh.scale_batch(row, float(level))
+        src_ids, valid, A, b = (x[0] for x in row[1:])
+        keep = torch.nonzero(valid.cpu()).reshape(-1).tolist()
+        Hs, Ws = lv.imgs.shape[1:]
+        stats = ncc.precompute_ref_stats(lv.imgs[r], lv.cams, lv.params)
+        R = geo.decompose_projection(np.asarray(scene.P[r], np.float64))[1]
+        fields = site_fields(scene_gt.depth[r], scene_gt.normal_world[r], R,
+                             lv.cams, stats, level, gen)
+        for impl in ("svolume", "direct"):
+            params_i = dataclasses.replace(lv.params, ncc_impl=impl)
+            before = read_launches()
+            sampler, ids = pm.batch_sampler(lv.imgs, src_ids, valid, A, b,
+                                            params_i, lv.svol_planes)
+            torch.cuda.synchronize()
+            builds = read_launches()["warp"] - before["warp"]
+            case = {"level": level, "ref": r, "impl": impl,
+                    "slots": int(valid.numel()), "ids": ids.tolist(),
+                    "volume_launches": builds}
+            ok = case["ids"] == src_ids[keep].tolist()
+            if impl == "svolume":
+                s_lo, s_hi = sv.s_range_for_depths(
+                    params_i.depth_min, params_i.depth_max,
+                    params_i.svolume_margin)
+                case["planes"] = [int(v.shape[0]) for v in sampler.data]
+                ok &= (case["planes"] == [lv.svol_planes[k] for k in keep]
+                       and builds == len(keep))
+                case["b2"] = []
+                for k, slot in enumerate(keep):
+                    S = case["planes"][k]
+                    plain = cuda_warp.build_svolume_view_plain(
+                        lv.imgs[ids[k]], A[slot], b[slot], s_lo,
+                        (s_hi - s_lo) / (S - 1), S)
+                    b2 = b2_agreement(sampler.data[k], plain)
+                    del plain
+                    case["b2"].append(b2)
+                    ok &= b2["pass"]
+                    worst["warp"] = max(worst["warp"], b2["max"])
+            else:
+                ok &= builds == 0
+            cost_fn, pctx = pm.make_batch_cost_fn(stats, lv.cams, Hs, Ws,
+                                                  sampler, ids, params_i)
+            key = "ncc" if impl == "svolume" else "direct"
+            case["evaluations"] = []
+            for field, n, d, invalid in fields:
+                for parity in ((0, 1, None) if field == "smooth" else (0,)):
+                    st, n_p, d_p, inv_p = stats, n, d, invalid
+                    if parity is not None:
+                        st = ncc.compress_stats(stats, parity)
+                        n_p = cb.parity_compress_vec(n, parity)
+                        d_p = cb.parity_compress(d, parity)
+                        inv_p = cb.parity_compress(invalid, parity)
+                    before = read_launches()
+                    mk = cost_fn(n_p, d_p, parity)
+                    torch.cuda.synchronize()
+                    launched = {k: v - before[k]
+                                for k, v in read_launches().items()}
+                    s0, sx, sy = ncc.plane_scalars(n_p, d_p, st)
+                    if impl == "svolume":
+                        mp = cuda_ncc.multiview_cost_plain(
+                            sampler.data, sampler.s_lo, sampler.inv_ds, ids,
+                            s0, sx, sy, st, params_i, parity)
+                        agree, good = b1_agreement(mk, mp, inv_p, params_i)
+                    else:
+                        mp = cuda_direct.multiview_cost_direct_plain(
+                            sampler, s0, sx, sy, st, params_i, parity)
+                        agree, good = b3_agreement(mk, mp, inv_p, params_i)
+                    good &= launched == {"ncc": 0, "warp": 0, "direct": 0,
+                                         key: 1}
+                    worst[key] = max(worst[key], agree["max"])
+                    case["evaluations"].append(
+                        {"field": field, "parity": parity,
+                         "launches": launched, **agree, "pass": good})
+                    ok &= good
+                    del mk, mp, s0, sx, sy
+            case["pass"] = ok
+            ok_all &= ok
+            cases.append(case)
+            del sampler, cost_fn, pctx
+            torch.cuda.empty_cache()
+    res = {"scene": label, "seconds": time.perf_counter() - t0,
+           "worst": worst, "cases": cases}
+    print(f"batch call sites (phase 9c, {label}): {json.dumps(res)} -> "
+          f"{'PASS' if ok_all else 'FAIL'}", flush=True)
+    if not ok_all:
+        raise SystemExit(f"the batched runner's kernel call sites disagree "
+                         f"with the plain versions on {label}")
+    return worst
+
+
+def sharded_rank(root: str, out: str) -> None:
+    """One rank of phase 9(b), in a gloo group of ranks sharing the card:
+    the scene on both samplers; rank 0 saves the results, every rank its
+    device and launches."""
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.parallel import mesh as pmesh
+    from tsar_mvs_tpu_torch.parallel import scene_sharded
+    mesh = pmesh.view_mesh("cuda")
+    if mesh.device.type != "cuda":
+        raise SystemExit(f"rank {mesh.rank} runs on {mesh.device}")
+    scene = pipeline.load_scene(root)
+    info = {"rank": mesh.rank, "world": mesh.world,
+            "device": str(mesh.device), "launches": {}}
+    for impl in SHARDED_IMPLS:
+        reset_launches()
+        depths, normals, cloud = scene_sharded.process_scene_sharded(
+            scene, AlgorithmParams(ncc_impl=impl), seed=0, mesh=mesh,
+            write_artifacts=False)
+        torch.cuda.synchronize()
+        info["launches"][impl] = read_launches()
+        if mesh.rank == 0:
+            np.savez(Path(out) / f"{impl}.npz", depths=depths,
+                     normals=normals, points=cloud.points)
+    (Path(out) / f"rank{mesh.rank}.json").write_text(json.dumps(info))
+
+
+def run_sharded_ranks_phase(dev) -> dict:
+    """Phase 9(b): two ranks sharing the card in a gloo group against world
+    1 on the card, at SHARDED_SMALL, on both samplers: depths and normals
+    bit-equal and the fused point counts equal; every rank on cuda and
+    launching the sampler's kernels (B1 and B2, or B3)."""
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.parallel import distributed
+    from tsar_mvs_tpu_torch.parallel import mesh as pmesh
+    from tsar_mvs_tpu_torch.parallel import scene_sharded
+    from tsar_mvs_tpu_torch.utils.synthetic import make_scene
+    base = Path(tempfile.mkdtemp(prefix="tsar_sharded_"))
+    h, w = SHARDED_SMALL
+    sg = make_scene(height=h, width=w, num_views=SHARDED_SMALL_VIEWS, seed=0)
+    root = sg.export(base / "scene")
+    scene = pipeline.load_scene(root)
+    world1 = {}
+    for impl in SHARDED_IMPLS:
+        t0 = time.perf_counter()
+        depths, normals, cloud = scene_sharded.process_scene_sharded(
+            scene, AlgorithmParams(ncc_impl=impl), seed=0,
+            mesh=pmesh.view_mesh(dev), write_artifacts=False)
+        torch.cuda.synchronize()
+        world1[impl] = (depths, normals, cloud.points,
+                        time.perf_counter() - t0)
+    site_worst = check_batch_sites(scene, sg, dev, 1,
+                                   f"{h}x{w}x{SHARDED_SMALL_VIEWS}")
+    out = base / "ranks"
+    out.mkdir()
+    t0 = time.perf_counter()
+    distributed.run_ranks(sharded_rank, 2, f"file://{base}/pg", "gloo",
+                          (str(root), str(out)))
+    ranks_s = time.perf_counter() - t0
+    infos = [json.loads((out / f"rank{k}.json").read_text())
+             for k in range(2)]
+    used = {"svolume": {"ncc", "warp"}, "direct": {"direct"}}
+    res, ok = {"ranks": infos, "ranks_s": ranks_s,
+               "site_worst": site_worst}, True
+    for impl in SHARDED_IMPLS:
+        got = np.load(out / f"{impl}.npz")
+        d1, n1, p1, s1 = world1[impl]
+        d2 = got["depths"]
+        rel = np.abs(d2 - d1) / np.maximum(np.abs(d1), 1e-12)
+        r = {"world1_s": s1, "depths_bit_equal": bool(np.array_equal(d1,
+                                                                     d2)),
+             "normals_bit_equal": bool(np.array_equal(n1, got["normals"])),
+             "depth_within_1e-4": float((rel <= 1e-4).mean()),
+             "points_world1": int(p1.shape[0]),
+             "points_world2": int(got["points"].shape[0]),
+             "points_bit_equal": bool(np.array_equal(p1, got["points"]))}
+        launched = all((info["launches"][impl][k] > 0) == (k in used[impl])
+                       for info in infos for k in info["launches"][impl])
+        r["kernels_launched_by_every_rank"] = launched
+        ok &= (launched and r["depths_bit_equal"] and r["normals_bit_equal"]
+               and r["points_world1"] == r["points_world2"])
+        res[impl] = r
+    ok &= all(info["device"].startswith("cuda") for info in infos)
+    print(f"two ranks on the card (phase 9b): {json.dumps(res)} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    if not ok:
+        raise SystemExit("two ranks on the card disagree with world 1")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -719,7 +1162,8 @@ def main() -> int:
     print(f"host library (native/): {host_lib}", flush=True)
 
     t = time.perf_counter()
-    scene_gt = make_scene(height=H, width=W, num_views=VIEWS, seed=0)
+    scene_gt = make_scene(height=H, width=W, num_views=VIEWS, seed=0,
+                          workers=VIEWS)
     root = Path(tempfile.mkdtemp(prefix="tsar_smoke_")) / "scene"
     scene_gt.export(root)
     scene = pipeline.load_scene(root)
@@ -781,13 +1225,20 @@ def main() -> int:
     print(f"B1 on the main path, [seconds, launches] by level and kind: "
           f"{json.dumps(by_kind)}", flush=True)
     torch.cuda.empty_cache()
-    run_scene_phase(scene_gt, root, dev)
+    scene_res = run_scene_phase(scene_gt, root, dev)
     torch.cuda.empty_cache()
     run_apd_phase(scene_gt, root, dev)
     torch.cuda.empty_cache()
     direct_res = run_direct_phase(scene_gt, root, dev, evaluations)
     torch.cuda.empty_cache()
     run_odd_phase(dev)
+    torch.cuda.empty_cache()
+    run_sharded_phase(scene_gt, root, dev, evaluations, builds, scene_res)
+    torch.cuda.empty_cache()
+    site_worst = [check_batch_sites(pipeline.load_scene(root), scene_gt, dev,
+                                    1, f"{H}x{W}x{VIEWS}")]
+    torch.cuda.empty_cache()
+    site_worst.append(run_sharded_ranks_phase(dev)["site_worst"])
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head_b1 = next(sh for sh in b1_shapes if sh["level"] == 1
@@ -801,7 +1252,7 @@ def main() -> int:
          "source": "tsar_mvs_tpu_torch/csrc/ncc.cu",
          "replaces": "tsar_mvs_tpu/ops/pallas_ncc.py:117",
          "launches": main_res["launches"]["ncc"],
-         "max_abs_err": max(ncc_worst,
+         "max_abs_err": max(ncc_worst, *(w["ncc"] for w in site_worst),
                             max(sh["max_abs_err"] for sh in b1_shapes)),
          **{k: head_b1[k] for k in keys}, "shapes": b1_shapes,
          "windows": b1_windows,
@@ -810,7 +1261,7 @@ def main() -> int:
          "source": "tsar_mvs_tpu_torch/csrc/warp.cu",
          "replaces": "tsar_mvs_tpu/ops/pallas_warp.py:155",
          "launches": main_res["launches"]["warp"],
-         "max_abs_err": max(warp["max"],
+         "max_abs_err": max(warp["max"], *(w["warp"] for w in site_worst),
                             max(sh["max_abs_err"] for sh in b2_shapes)),
          **{k: head_b2[k] for k in keys}, "shapes": b2_shapes,
          "launches_by_shape": main_res["launches_by_shape"]["warp"]},
@@ -820,6 +1271,7 @@ def main() -> int:
                      "tsar_mvs_tpu/ops/ncc_color.py:111)",
          "launches": direct_res["launches"]["direct"],
          "max_abs_err": max(direct_worst,
+                            *(w["direct"] for w in site_worst),
                             max(sh["max_abs_err"] for sh in b3_shapes)),
          **{k: head_b3[k] for k in keys}, "shapes": b3_shapes,
          "launches_by_shape": direct_res["launches_by_shape"]},

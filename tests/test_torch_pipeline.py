@@ -126,14 +126,10 @@ def test_cli_view_writes_artifacts(scene, tmp_path):
 
 
 def test_cli_scene_fuse_not_ported(tmp_path):
-    """What is not ported yet exits 2 before touching the scene: --sharded
-    on (with or without -color_processing, which is ported and parses),
-    bench, and an unknown command."""
+    """What is not ported yet exits 2 before touching the scene: bench,
+    and an unknown command. (`scene --sharded on` is ported:
+    tests/test_torch_parallel.py::test_cli_scene_sharded_on_writes_artifacts.)"""
     from tsar_mvs_tpu_torch import cli
-    assert cli.main(["scene", str(tmp_path), "-color_processing",
-                     "--sharded", "on", "--device", "cpu"]) == 2
-    assert cli.main(["scene", str(tmp_path), "--sharded", "on",
-                     "--device", "cpu"]) == 2
     assert cli.main(["bench"]) == 2
     assert cli.main(["sweep"]) == 2
     assert not (tmp_path / "results").exists()
@@ -159,7 +155,8 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("pipeline", "ops.cuda_ncc", "models.fusion", "config", "eval",
                 "kernel_times", "models.weak_texture", "utils.synthetic",
-                "utils.native"):
+                "utils.native", "parallel.mesh", "parallel.scene_sharded",
+                "parallel.distributed"):
         assert f"tsar_mvs_tpu_torch.{mod}" in res["mods"]
     assert res["loaded"] == []
 

@@ -9,7 +9,10 @@ state across for the tests that compare the two).
 
 The two TPU kernels become CUDA C++ under ``csrc/``: the s-volume NCC cost
 (``ops/cuda_ncc.py``) and the s-volume build (``ops/cuda_warp.py``). They
-are compiled for ``sm_90a`` with nvcc on first use (``_build.py``).
+are compiled for ``sm_90a`` with nvcc on first use (``_build.py``), as
+is kernel B3 (``ops/cuda_direct.py``), the direct sampler's cost.
+``parallel/`` splits a scene's reference views over the ranks of a
+torch.distributed group.
 """
 
 import torch

@@ -12,7 +12,9 @@ reference binary's own command line does. `--device` defaults to `cuda`;
 without a CUDA device the commands that compute exit with status 1
 unless `--device cpu` is given. `-color_processing` (colour NCC) and
 `--n_best` above 1 run PatchMatch on the direct sampler (kernel B3 on the
-card). Not ported yet, exiting with status 2: `scene --sharded on` and
+card). `scene --sharded on` runs each rank's slice of the reference views
+(``parallel/``; ranks join through the TSAR_* environment, see
+``parallel/distributed.py``). Not ported yet, exiting with status 2:
 `bench`.
 """
 
@@ -241,23 +243,42 @@ def cmd_scene(argv: list[str]) -> int:
                         "(direct sampler)")
     p.add_argument("--sharded", choices=("auto", "on", "off"),
                    default="auto",
-                   help="'on' (view sharding over GPUs) is not ported yet; "
-                        "'auto' and 'off' are accepted for parity with the "
-                        "JAX CLI and both run the views one after another")
+                   help="view sharding over the ranks of a process group "
+                        "(joined from the TSAR_COORDINATOR, "
+                        "TSAR_NUM_PROCESSES, TSAR_PROCESS_ID environment; "
+                        "TSAR_BACKEND nccl or gloo): 'on' shards at any "
+                        "world size, 'auto' when the group has more than "
+                        "one rank, 'off' runs the views one after another")
     _add_device(p)
     ns = p.parse_args(argv)
-    if ns.sharded == "on":
-        return _not_ported("--sharded on")
+    if ns.sharded == "on" and ns.color_processing:
+        print("-color_processing is not on the sharded path (nor in the "
+              "JAX package): use --sharded off", file=sys.stderr)
+        return 2
     device = _device(ns)
     if device is None:
         return 1
+    import torch.distributed as dist
     from tsar_mvs_tpu_torch import pipeline
-    pipeline.process_scene(ns.scene_dir, _alg_params(ns), seed=ns.seed,
-                           write_ply=not ns.no_ply, resume=ns.resume,
-                           device=device)
-    if ns.fuse:
-        out = pipeline.fuse_scene(ns.scene_dir, device=device)
-        print(f"fused cloud: {out}")
+    from tsar_mvs_tpu_torch.parallel import distributed
+    joined = False
+    if ns.sharded != "off" and not dist.is_initialized():
+        joined = distributed.initialize(
+            "gloo" if torch.device(device).type == "cpu" else None)
+    try:
+        pipeline.process_scene(
+            ns.scene_dir, _alg_params(ns), seed=ns.seed,
+            write_ply=not ns.no_ply, resume=ns.resume, device=device,
+            sharded={"auto": "auto", "on": True, "off": False}[ns.sharded])
+        # Every rank's artifacts are on disk once process_scene returns
+        # (on either path its last step is a collective); rank 0 fuses
+        # them.
+        if ns.fuse and (not dist.is_initialized() or dist.get_rank() == 0):
+            out = pipeline.fuse_scene(ns.scene_dir, device=device)
+            print(f"fused cloud: {out}")
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

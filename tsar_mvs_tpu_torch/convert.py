@@ -14,7 +14,7 @@ import torch
 
 from tsar_mvs_tpu_torch.config import AlgorithmParams, FusionParams
 from tsar_mvs_tpu_torch.geometry import CameraSet
-from tsar_mvs_tpu_torch.models.patchmatch import PlaneState
+from tsar_mvs_tpu_torch.models.patchmatch import PlaneState, SceneBatch
 from tsar_mvs_tpu_torch.ops.ncc import RefStats
 from tsar_mvs_tpu_torch.ops.svolume import SVolume
 
@@ -42,6 +42,12 @@ def camera_set(src, device) -> CameraSet:
 def plane_state(src, device) -> PlaneState:
     """A PlaneState (normal, d, cost, ratio, best_view)."""
     return _fields(PlaneState, src, device)
+
+
+def scene_batch_from_jax(src, device) -> SceneBatch:
+    """A SceneBatch (ref_ids, src_ids, src_valid, A, b) from the JAX
+    package's."""
+    return _fields(SceneBatch, src, device)
 
 
 def ref_stats(src, device) -> RefStats:

@@ -11,7 +11,8 @@ reference loop runs in order.
 
 The votes of one reference are dense (H, W) maps on the device; only the
 emitted points leave it. The view-sharded vote superset of the JAX
-package (``parallel.fuse_sharded``) is not ported.
+package is ``parallel/mesh.py::fuse_sharded``, which calls
+``fusion_votes`` with an empty ``used`` mask.
 """
 
 from __future__ import annotations

@@ -11,6 +11,10 @@ checkerboard-packed (H, W/2) layout when H and W are even; otherwise (an
 odd-sided pyramid level) they evaluate on the dense grid and update only
 the parity's pixels, as the JAX package does.
 
+``run_patchmatch_many`` runs a batch of reference views from a SceneBatch
+of per-slot warp factors (the unit of the view-sharded scene,
+``parallel/``).
+
 Randomness comes from an explicit ``torch.Generator``; the draws are
 per pixel at every refine scale (the JAX package's tile-blocked draws
 only narrowed its TPU kernel's per-tile brackets, which kernel B1 does
@@ -121,17 +125,27 @@ def svolume_plane_counts_shared(cams_list: Sequence[geo.CameraSet],
     """Scene-shared plane counts: the per-source-slot max over all
     reference views, with the memory budget re-applied on the maxima (plane
     spacing sets accuracy, so these follow the JAX package exactly)."""
-    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
-                                       params.svolume_margin)
     As = [c.A.cpu().numpy()[list(v)] for c, v in zip(cams_list,
                                                      view_ids_list)]
     bs = [c.b.cpu().numpy()[list(v)] for c, v in zip(cams_list,
                                                      view_ids_list)]
+    return _shared_plane_counts(As, bs, height, width, params)
+
+
+def _shared_plane_counts(As, bs, height: int, width: int,
+                         params: AlgorithmParams) -> tuple[int, ...]:
+    """The per-slot max of plane_counts over the references' (A, b), with
+    the budget re-applied on the maxima by coarsening the step 1.5x up to
+    64 px."""
+    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
+                                       params.svolume_margin)
 
     def shared(step):
-        return np.stack([sv.plane_counts(A, b, height, width, s_lo, s_hi,
-                                         step_px=step)
-                         for A, b in zip(As, bs)]).max(axis=0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            # A padding slot (A = 0, b = 0) has no epipolar span: 2 planes.
+            return np.stack([sv.plane_counts(A, b, height, width, s_lo,
+                                             s_hi, step_px=step)
+                             for A, b in zip(As, bs)]).max(axis=0)
 
     step = params.svolume_step_px
     out = shared(step)
@@ -372,6 +386,15 @@ def make_direct_cost_fn(stats, cams: geo.CameraSet, height: int,
     ncc.RefStats, or (V, 3, H, W) colour with ncc_color.ColorRefStats,
     index 0 the reference; ids the source positions."""
     views = cuda_direct.make_views(imgs[ids], cams.A[ids], cams.b[ids], ids)
+    return direct_cost_fn_from_views(stats, cams, height, width, views,
+                                     params)
+
+
+def direct_cost_fn_from_views(stats, cams: geo.CameraSet, height: int,
+                              width: int, views: cuda_direct.DirectViews,
+                              params: AlgorithmParams):
+    """make_direct_cost_fn on views packed by the caller (their warp
+    factors need not come from `cams`)."""
     color = isinstance(stats, ncc_color.ColorRefStats)
 
     def eval_cost(normal, d, st, parity):
@@ -421,15 +444,194 @@ def run_patchmatch(generator: torch.Generator, imgs: torch.Tensor,
                                s_hi, svol_planes)
         cost_fn, pctx = make_svolume_cost_fn(stats, cams, H, W, vol, idx,
                                              params)
+    iters = params.iterations if iterations is None else iterations
+    return _iterate(generator, cost_fn, pctx, stats.rays, cams, params,
+                    iters, init_state)
+
+
+def _iterate(generator: torch.Generator, cost_fn, pctx: ParityCtx | None,
+             rays: torch.Tensor, cams: geo.CameraSet,
+             params: AlgorithmParams, iterations: int,
+             init_state: PlaneState | None) -> PlaneState:
+    """Random init (unless `init_state` is given; its costs are kept) and
+    `iterations` checkerboard iterations on cost_fn."""
     state = init_state
     if state is None:
-        state = random_init_with(generator, (H, W), cams, stats.rays,
-                                 cost_fn, params)
+        state = random_init_with(generator, tuple(rays.shape[:2]), cams,
+                                 rays, cost_fn, params)
     step = make_patchmatch_step(cost_fn, cams, params, pctx)
-    iters = params.iterations if iterations is None else iterations
-    for _ in range(iters):
+    for _ in range(iterations):
         state = step(state, generator)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-reference runner: the unit each rank of a view-sharded run
+# loops over its slice of the reference views (parallel/mesh.py).
+# ---------------------------------------------------------------------------
+
+class SceneBatch(NamedTuple):
+    """R reference views, each matched against up to S source views; slots
+    past a reference's sources are padding (src_valid False). Warp factors
+    are in each reference's own rebased frame with view 0's K."""
+    ref_ids: torch.Tensor    # (R,) int32 image id of each reference
+    src_ids: torch.Tensor    # (R, S) int32 image ids of its sources
+    src_valid: torch.Tensor  # (R, S) bool: the slot holds a source
+    A: torch.Tensor          # (R, S, 3, 3) K R_rel K^-1
+    b: torch.Tensor          # (R, S, 3)    K t_rel
+
+
+def build_scene_batch(P_list, ref_ids: Sequence[int],
+                      src_ids_per_ref: Sequence[Sequence[int]],
+                      num_src: int, cam_scale: float = 1.0, *,
+                      device: torch.device | str) -> SceneBatch:
+    """The (R, S) warp factors from raw projections and a view-selection
+    table, in float64 on the host, cast to float32 on `device`. Every
+    reference uses view 0's K as K_ref, as the JAX package does."""
+    Ks, Rs, ts = [], [], []
+    for P in P_list:
+        K, R, C = geo.decompose_projection(np.asarray(P, np.float64))
+        Ks.append(geo.scale_K(K, cam_scale))
+        Rs.append(R)
+        ts.append(-R @ C)
+    K_ref = Ks[0]
+    K_inv = np.linalg.inv(K_ref)
+    R_, S = len(ref_ids), num_src
+    A = np.zeros((R_, S, 3, 3))
+    b = np.zeros((R_, S, 3))
+    sid = np.zeros((R_, S), np.int32)
+    valid = np.zeros((R_, S), bool)
+    for i, ref in enumerate(ref_ids):
+        for j, src in enumerate(list(src_ids_per_ref[i])[:S]):
+            R_rel = Rs[src] @ Rs[ref].T
+            t_rel = ts[src] - R_rel @ ts[ref]
+            A[i, j] = K_ref @ R_rel @ K_inv
+            b[i, j] = K_ref @ t_rel
+            sid[i, j] = src
+            valid[i, j] = True
+
+    def arr(x, dtype=None):
+        return torch.as_tensor(np.asarray(x, dtype), device=device)
+    return SceneBatch(ref_ids=arr(ref_ids, np.int32), src_ids=arr(sid),
+                      src_valid=arr(valid), A=arr(A, np.float32),
+                      b=arr(b, np.float32))
+
+
+def svolume_plane_counts_batch(batch: SceneBatch, height: int, width: int,
+                               params: AlgorithmParams
+                               ) -> tuple[int, ...] | None:
+    """Per-slot plane counts shared by every reference of the batch: the
+    maximum over all R references, with the memory budget re-applied by
+    coarsening the step 1.5x up to 64 px. None off the s-volume path.
+    Computed on the full batch, so every rank gets the same volumes."""
+    if resolve_ncc_impl(params) != "svolume":
+        return None
+    return _shared_plane_counts(batch.A.cpu().numpy(), batch.b.cpu().numpy(),
+                                height, width, params)
+
+
+def batch_sampler(imgs: torch.Tensor, src_ids: torch.Tensor,
+                  src_valid: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
+                  params: AlgorithmParams,
+                  svol_planes: Sequence[int] | None = None):
+    """(sampler, ids) of one reference of a SceneBatch: imgs (N, H, W)
+    every image of the scene, src_ids/src_valid (S,), A (S, 3, 3), b (S,
+    3) its slots. Only the valid slots enter the kernels' view tables (the
+    JAX package masks the others to MAXCOST inside the aggregation, which
+    gives the same top-2 and best-n); ids (n_valid,) are their image ids,
+    which best_view reports. On the s-volume the sampler is an sv.SVolume
+    (kernel B2 builds one volume per valid slot, with the per-slot
+    `svol_planes`, default this reference's own counts); on the direct
+    sampler the sources packed once for kernel B3
+    (cuda_direct.DirectViews)."""
+    keep = torch.nonzero(src_valid.cpu()).reshape(-1).tolist()
+    if not keep:
+        raise ValueError("a reference view needs at least one valid source "
+                         "slot")
+    idx = torch.as_tensor(keep, dtype=torch.int64, device=imgs.device)
+    ids = src_ids.to(imgs.device)[idx].to(torch.int64)
+    src_imgs = imgs[ids]
+    A, b = A[idx], b[idx]
+    if resolve_ncc_impl(params) == "direct":
+        return cuda_direct.make_views(src_imgs, A, b, ids), ids
+    H, W = imgs.shape[1:]
+    s_lo, s_hi = sv.s_range_for_depths(params.depth_min, params.depth_max,
+                                       params.svolume_margin)
+    if svol_planes is None:
+        counts = sv.plane_counts(A.cpu().numpy(), b.cpu().numpy(), H, W,
+                                 s_lo, s_hi, step_px=params.svolume_step_px,
+                                 budget_bytes=params.svolume_budget_mb << 20)
+    else:
+        counts = [svol_planes[k] for k in keep]
+    return sv.build_svolume(src_imgs, A, b, s_lo, s_hi, counts), ids
+
+
+def make_batch_cost_fn(stats: ncc.RefStats, cams: geo.CameraSet,
+                       height: int, width: int, sampler, ids: torch.Tensor,
+                       params: AlgorithmParams):
+    """cost_fn and ParityCtx of one reference of a SceneBatch on the
+    sampler `batch_sampler` built: B1 on an sv.SVolume, B3 on
+    cuda_direct.DirectViews."""
+    if isinstance(sampler, cuda_direct.DirectViews):
+        return direct_cost_fn_from_views(stats, cams, height, width,
+                                         sampler, params)
+    return make_svolume_cost_fn(stats, cams, height, width, sampler, ids,
+                                params)
+
+
+def patchmatch_one_ref(generator: torch.Generator, imgs: torch.Tensor,
+                       ref_id: int, src_ids: torch.Tensor,
+                       src_valid: torch.Tensor, A: torch.Tensor,
+                       b: torch.Tensor, cams: geo.CameraSet,
+                       params: AlgorithmParams, iterations: int,
+                       svol_planes: Sequence[int] | None = None,
+                       init_state: PlaneState | None = None) -> PlaneState:
+    """PatchMatch for one reference of a SceneBatch: imgs (N, H, W) every
+    image, the slots' ids, mask and warp factors (batch_sampler); cams
+    gives the shared intrinsics and depth range. A lifted `init_state`
+    keeps its coarse costs, as in run_patchmatch_pyramid."""
+    ref_img = imgs[int(ref_id)]
+    H, W = ref_img.shape
+    stats = ncc.precompute_ref_stats(ref_img, cams, params)
+    sampler, ids = batch_sampler(imgs, src_ids, src_valid, A, b, params,
+                                 svol_planes)
+    cost_fn, pctx = make_batch_cost_fn(stats, cams, H, W, sampler, ids,
+                                       params)
+    return _iterate(generator, cost_fn, pctx, stats.rays, cams, params,
+                    iterations, init_state)
+
+
+def fold_in(seed: int, *data: int) -> int:
+    """A generator seed from `seed` and `data` (the role of chained
+    jax.random.fold_in): the same numbers give the same seed in every
+    process."""
+    entropy = [int(x) % (1 << 64) for x in (seed, *data)]
+    return int(np.random.SeedSequence(entropy).generate_state(
+        1, np.uint64)[0])
+
+
+def run_patchmatch_many(seed: int, imgs: torch.Tensor, batch: SceneBatch,
+                        cams: geo.CameraSet, params: AlgorithmParams,
+                        iterations: int,
+                        svol_planes: Sequence[int] | None = None,
+                        init_states: Sequence[PlaneState] | None = None,
+                        level: int = 0) -> list[PlaneState]:
+    """patchmatch_one_ref over the batch's references in order, one state
+    each. Reference r draws from a generator seeded fold_in(seed, level,
+    image id of r), so its result does not depend on which rank runs it
+    or on the other references of the batch. init_states: one lifted state
+    per reference (a coarser pyramid level)."""
+    out = []
+    for r in range(batch.ref_ids.shape[0]):
+        ref = int(batch.ref_ids[r])
+        gen = torch.Generator(device=imgs.device).manual_seed(
+            fold_in(seed, level, ref))
+        out.append(patchmatch_one_ref(
+            gen, imgs, ref, batch.src_ids[r], batch.src_valid[r],
+            batch.A[r], batch.b[r], cams, params, iterations,
+            svol_planes=svol_planes,
+            init_state=None if init_states is None else init_states[r]))
+    return out
 
 
 # ---------------------------------------------------------------------------

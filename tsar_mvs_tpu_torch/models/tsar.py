@@ -38,7 +38,7 @@ class TsarResult:
     depth_pm: np.ndarray       # (H, W) depth of the input (PatchMatch) state
 
 
-def _disparity_of(cams: geo.CameraSet, normal, d):
+def disparity_of(cams: geo.CameraSet, normal, d):
     H, W = d.shape
     xx, yy = geo.pixel_grid(H, W, d.device)
     return geo.disparity_depth(cams.f, cams.baseline,
@@ -54,7 +54,7 @@ def confidence_stage(imgs: torch.Tensor, view_ids: Sequence[int],
                            state.normal, state.d, params)
     lrdiff = torch.clamp(torch.abs(state.cost - rl), max=params.lr_diff_clamp)
     confid = ((2.0 - state.cost) / 2.0 + (1.0 - lrdiff)) / 2.0
-    return confid, lrdiff, _disparity_of(cams, state.normal, state.d)
+    return confid, lrdiff, disparity_of(cams, state.normal, state.d)
 
 
 def wmf_stage(ref_img: torch.Tensor, cams: geo.CameraSet,
@@ -134,7 +134,7 @@ def fill_stage(cams: geo.CameraSet, state: PlaneState,
     d = torch.where(fill, d_r, state.d)
     new_state = state._replace(normal=normal, d=d,
                                cost=torch.where(fill, 0.0, state.cost))
-    return new_state, reliable | fill, _disparity_of(cams, normal, d)
+    return new_state, reliable | fill, disparity_of(cams, normal, d)
 
 
 def fake_depth_stage(cams: geo.CameraSet, region_planes: torch.Tensor,
@@ -175,6 +175,22 @@ def border_consistency_check(weak: WeakTexture, fake_depth: np.ndarray,
         return np.where(borlen > 0, depdif / borlen, 0.0)
 
 
+def border_veto(cams: geo.CameraSet, region_planes: np.ndarray,
+                weak: WeakTexture, disp: torch.Tensor,
+                params: AlgorithmParams) -> np.ndarray:
+    """Drop (zero) the region planes whose filled depth jumps more than
+    border_check_thr * depth_min across the region border."""
+    dev = disp.device
+    fake = fake_depth_stage(
+        cams, torch.as_tensor(region_planes, device=dev),
+        torch.as_tensor(weak.labels_full, dtype=torch.int64, device=dev),
+        torch.as_tensor(weak.text == -1, device=dev), params)
+    jump = border_consistency_check(weak, fake.cpu().numpy(),
+                                    disp.cpu().numpy(), cams)
+    veto = jump > params.border_check_thr * params.depth_min
+    return np.where(veto[:, None], 0.0, region_planes).astype(np.float32)
+
+
 def wmf_final_stage(ref_img: torch.Tensor, cams: geo.CameraSet,
                     state: PlaneState, disp: torch.Tensor,
                     reliable: torch.Tensor, textured: torch.Tensor,
@@ -193,8 +209,8 @@ def prior_drift_revert(cams: geo.CameraSet, state: PlaneState,
     """Pixels whose refined disparity drifted more than `drift_thr` from
     the prior's take the prior plane back. Opt-in: no pipeline calls it
     (the reference's clause for it is never invoked either)."""
-    revert = torch.abs(_disparity_of(cams, state.normal, state.d)
-                       - _disparity_of(cams, prior_normal, prior_d)) \
+    revert = torch.abs(disparity_of(cams, state.normal, state.d)
+                       - disparity_of(cams, prior_normal, prior_d)) \
         > drift_thr
     return state._replace(
         normal=torch.where(revert[..., None], prior_normal, state.normal),
@@ -240,16 +256,7 @@ def tsar_refine(imgs: torch.Tensor, cams: geo.CameraSet,
                              device=dev)
     weak_region = torch.as_tensor(weak.text == -1, device=dev)
     if params.border_check:
-        # Drop region planes whose filled depth jumps more than
-        # border_check_thr * depth_min across the region border.
-        fake = fake_depth_stage(cams, torch.as_tensor(region_planes,
-                                                      device=dev),
-                                labels, weak_region, params)
-        jump = border_consistency_check(weak, fake.cpu().numpy(),
-                                        disp.cpu().numpy(), cams)
-        veto = jump > params.border_check_thr * params.depth_min
-        region_planes = np.where(veto[:, None], 0.0,
-                                 region_planes).astype(np.float32)
+        region_planes = border_veto(cams, region_planes, weak, disp, params)
     state2, reliable2, disp2 = fill_stage(
         cams, state, torch.as_tensor(region_planes, device=dev), labels,
         weak_region, reliable, params)

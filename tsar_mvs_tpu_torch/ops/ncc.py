@@ -294,6 +294,52 @@ def rl_cost_fused(ref_img: torch.Tensor, src_imgs: torch.Tensor,
     return torch.where(bv >= 0, cost, 0.0)
 
 
+def rl_cost_fused_traced(ref_img: torch.Tensor, src_imgs: torch.Tensor,
+                         best_view: torch.Tensor, src_ids: torch.Tensor,
+                         src_valid: torch.Tensor, A: torch.Tensor,
+                         b: torch.Tensor, cams: CameraSet,
+                         normal: torch.Tensor, d: torch.Tensor,
+                         params: AlgorithmParams) -> torch.Tensor:
+    """`rl_cost_fused` with per-slot warp factors, for the view-sharded
+    confidence stage. The JAX package's name is kept: there the factors
+    were traced so one compiled program served every reference; here
+    nothing is traced, and the factors come from a SceneBatch row instead
+    of `cams`.
+
+    src_imgs: (S, H, W) source images in slot order; src_ids: (S,) image
+    ids in best_view's id space; src_valid: (S,) slot mask; A: (S, 3, 3),
+    b: (S, 3). Zero where no valid slot matches best_view."""
+    H, W = ref_img.shape
+    S = src_imgs.shape[0]
+    bv = best_view
+    masks = [((bv == src_ids[s]) & src_valid[s]).to(torch.float32)
+             for s in range(S)]
+    any_live = sum(masks) > 0
+    zero = torch.zeros((), dtype=torch.float32, device=ref_img.device)
+    A_px = [[zero for _ in range(3)] for _ in range(3)]
+    b_px = [zero for _ in range(3)]
+    slot = torch.zeros((H, W), dtype=torch.float32, device=ref_img.device)
+    for s in range(S):
+        m = masks[s]
+        slot = slot + float(s) * m
+        for r in range(3):
+            for c in range(3):
+                A_px[r][c] = A_px[r][c] + A[s, r, c] * m
+            b_px[r] = b_px[r] + b[s, r] * m
+
+    stack = torch.stack([pack_image(src_imgs[s]).data
+                         for s in range(S)]).reshape(-1, 4)
+    packed = pack_image(ref_img)._replace(data=stack)
+    base = slot.to(torch.int64) * (H * W)
+
+    def sample_src(x, y):
+        return bilinear_sample_packed(packed, x, y, base=base)
+
+    cost = _rl_cost_from_factors(ref_img, sample_src, A_px, b_px, cams,
+                                 normal, d, params)
+    return torch.where(any_live, cost, 0.0)
+
+
 def _rl_cost_from_factors(ref_img: torch.Tensor, sample_src, A, b,
                           cams: CameraSet, normal: torch.Tensor,
                           d: torch.Tensor,

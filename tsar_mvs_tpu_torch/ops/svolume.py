@@ -11,7 +11,8 @@ an integer offset of the volume plus linear interpolation along s.
 
 On the card the build is kernel B2 (``ops/cuda_warp.py``) and the cost is
 kernel B1 (``ops/cuda_ncc.py``); on the CPU both run their plain PyTorch
-versions. The port has no other sampler.
+versions. The direct sampler (kernel B3) is the other one
+(``ops/cuda_direct.py``).
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ Per view: weak-texture detection and SLIC on the host, then either the
 lifted APD prior (PatchMatch only when asked for, grayscale) or the
 coarse-to-fine PatchMatch pyramid on the device (on the colour images
 under -color_processing), TSAR refinement, artifacts. A scene is the views
-one after another, then fusion.
+one after another, then fusion; or, in a process group, each rank's slice
+of the views (``parallel.scene_sharded``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tsar_mvs_tpu_torch.config import AlgorithmParams, FusionParams
 from tsar_mvs_tpu_torch.models import weak_texture as wt
@@ -445,14 +447,46 @@ def process_scene(scene_root: str | Path,
                   params: AlgorithmParams | None = None, seed: int = 0,
                   write_ply: bool = True,
                   resume: bool = False,
-                  device: torch.device | str = "cuda"
+                  device: torch.device | str = "cuda",
+                  sharded: str | bool = "auto"
                   ) -> list[tsar.TsarResult | None]:
-    """Every reference view of a scene, one after another, on `device`
-    (the card unless the caller says otherwise). With `resume`, views
-    whose TSAR_disp.dmb exists are skipped (None in the result). View i
-    draws from a generator seeded seed * 1000003 + i."""
+    """Every reference view of a scene on `device` (the card unless the
+    caller says otherwise).
+
+    Sequentially the views run one after another: with `resume`, views
+    whose TSAR_disp.dmb exists are skipped (None in the result), and view
+    i draws from a generator seeded seed * 1000003 + i. `sharded` "auto"
+    takes the view-sharded path (parallel.scene_sharded) when an
+    initialised process group has more than one rank and `resume` is off,
+    as the JAX package does with more than one device; True forces it, at
+    any world size, and False the sequential loop. The sharded path
+    writes TSAR_disp and TSAR_normals (no per-view PLY), returns None
+    entries and does not resume; `device` names the rank's device (a bare
+    "cuda" is GPU rank % device_count). In a group of more than one rank
+    the sequential loop runs on rank 0 alone (the others return None
+    entries), and every rank returns once it has ended, so no two ranks
+    write one view's files."""
+    if sharded not in ("auto", True, False):
+        raise ValueError(f"sharded must be 'auto', True or False, got "
+                         f"{sharded!r}")
     device = resolve_device(device)
     scene = load_scene(scene_root)
+    use_sharded = sharded is True or (
+        sharded == "auto" and not resume and dist.is_initialized()
+        and dist.get_world_size() > 1)
+    if use_sharded:
+        if resume:
+            raise ValueError("the sharded scene path does not resume")
+        from tsar_mvs_tpu_torch.parallel import mesh as pmesh
+        from tsar_mvs_tpu_torch.parallel import scene_sharded
+        scene_sharded.process_scene_sharded(
+            scene, params, seed=seed, mesh=pmesh.view_mesh(device),
+            fuse=False)
+        return [None] * len(scene.names)
+    grouped = dist.is_initialized() and dist.get_world_size() > 1
+    if grouped and dist.get_rank() != 0:
+        dist.barrier()
+        return [None] * len(scene.names)
     results = []
     for ref_idx, name in enumerate(scene.names):
         if resume and (scene.root / "results" / name
@@ -463,6 +497,8 @@ def process_scene(scene_root: str | Path,
             seed * 1000003 + ref_idx)
         results.append(process_view(scene, ref_idx, params, gen,
                                     write_ply=write_ply, device=device))
+    if grouped:
+        dist.barrier()
     return results
 
 

@@ -283,11 +283,121 @@ def look_at(C: np.ndarray, target: np.ndarray,
     return R, -R @ C
 
 
+def _render_view(R: np.ndarray, t: np.ndarray, K: np.ndarray, rects,
+                 cyls, height: int, width: int, seed: int):
+    """Ray-cast one view: (image before noise, camera-frame depth with inf
+    for a miss, world normals, textureless mask)."""
+    f = K[0, 0]
+    xx, yy = np.meshgrid(np.arange(width) + 0.0, np.arange(height) + 0.0)
+    pix = np.stack([xx, yy, np.ones_like(xx)], axis=-1)
+    K_inv = np.linalg.inv(K)
+    C = -R.T @ t
+    dirs = np.einsum("ij,hwj->hwi", R.T @ K_inv, pix)  # ray dirs, world
+    best_s = np.full((height, width), np.inf)
+    tex_val = np.zeros((height, width))
+    hit_n = np.zeros((height, width, 3))
+    hit_weak = np.zeros((height, width), bool)
+    for rect in rects:
+        n = rect.normal
+        denom = dirs @ n
+        s = ((rect.origin - C) @ n) / np.where(np.abs(denom) < 1e-12,
+                                               np.nan, denom)
+        X = C + s[..., None] * dirs
+        rel = X - rect.origin
+        u = rel @ rect.eu / (rect.eu @ rect.eu)
+        w_ = rel @ rect.ev / (rect.ev @ rect.ev)
+        valid = (np.isfinite(s) & (s > 0) & (u >= 0) & (u <= 1)
+                 & (w_ >= 0) & (w_ <= 1) & (s < best_s))
+        if rect.textured:
+            # Resolution-matched texture: extend the octave ladder so
+            # the finest octave has a ~2-4 px wavelength at THIS
+            # render size, with a 0.7 persistence (flatter spectrum,
+            # like real photographs). A fixed 4-octave/0.5 spectrum
+            # becomes per-pixel smooth at >=1K renders, and the
+            # Roberts weak-texture detector (correctly, per its
+            # reference thresholds) then flags most of the image as
+            # textureless — which is scene unrealism, not detector
+            # or engine error.
+            px_per_unit = f / 5.0      # typical scene depth ~5
+            octs = int(np.clip(np.ceil(np.log2(
+                max(px_per_unit / 3.0, 4.0) / 2.0)) + 1, 4, 9))
+            val = 0.15 + 0.7 * value_noise(X, seed=seed, octaves=octs,
+                                           persistence=0.7)
+        else:
+            val = np.full(s.shape, rect.albedo)
+        in_patch = np.zeros(s.shape, bool)
+        if rect.flat_patch is not None:
+            # Soft-edged textureless patch: texture amplitude ramps to
+            # zero toward the core (real weak regions fade gradually,
+            # which is what gives TSAR's region RANSAC a halo of
+            # matchable, coplanar support around the flat core).
+            u0, u1, v0, v1 = rect.flat_patch
+            margin = 0.25
+            du = (np.minimum(u - u0, u1 - u) / (u1 - u0)) / margin
+            dv = (np.minimum(w_ - v0, v1 - w_) / (v1 - v0)) / margin
+            inside = np.minimum(du, dv)      # <0 outside, >=1 core
+            tex_w = np.clip(1.0 - inside, 0.0, 1.0)  # texture weight
+            tex_w = tex_w * tex_w * (3 - 2 * tex_w)
+            val = val * tex_w + rect.albedo * (1.0 - tex_w)
+            in_patch = inside > 0.55  # flat core (texture < ~3%)
+        best_s = np.where(valid, s, best_s)
+        tex_val = np.where(valid, val, tex_val)
+        hit_n = np.where(valid[..., None], n, hit_n)
+        hit_weak = np.where(valid, (not rect.textured) | in_patch,
+                            hit_weak)
+    for cyl in cyls:
+        av = cyl.axis / np.linalg.norm(cyl.axis)
+        oc = C - cyl.c0
+        d_perp = dirs - (dirs @ av)[..., None] * av
+        o_perp = oc - (oc @ av) * av
+        a = np.sum(d_perp * d_perp, axis=-1)
+        bq = 2.0 * (d_perp @ o_perp)
+        cq = o_perp @ o_perp - cyl.radius ** 2
+        disc = bq * bq - 4.0 * a * cq
+        ok_d = (disc > 0) & (a > 1e-12)
+        sq = np.sqrt(np.where(ok_d, disc, 0.0))
+        s = np.where(ok_d, (-bq - sq) / (2 * np.where(a > 1e-12, a, 1)),
+                     np.nan)                       # near (front) hit
+        X = C + s[..., None] * dirs
+        rel_ax = (X - cyl.c0) @ av
+        w_vec = (X - cyl.c0) - rel_ax[..., None] * av
+        n_map = w_vec / np.maximum(
+            np.linalg.norm(w_vec, axis=-1, keepdims=True), 1e-12)
+        fd = cyl.face_dir / np.linalg.norm(cyl.face_dir)
+        cosang = n_map @ fd
+        cos_half = np.cos(np.deg2rad(cyl.span_deg / 2))
+        valid = (np.isfinite(s) & (s > 0) & ok_d
+                 & (rel_ax >= 0) & (rel_ax <= cyl.height)
+                 & (cosang >= cos_half) & (s < best_s))
+        # Texture ramps in from the rim (angular + height edges) so
+        # the weak core has a matchable textured halo.
+        ang_in = (cosang - cos_half) / (1.0 - cos_half)   # 0 rim,1 apex
+        h_in = np.minimum(rel_ax, cyl.height - rel_ax) / cyl.height
+        inside = np.minimum(ang_in / cyl.rim,
+                            h_in / (cyl.rim * 0.5))
+        tex_w = np.clip(1.0 - inside, 0.0, 1.0)
+        tex_w = tex_w * tex_w * (3 - 2 * tex_w)
+        tex = 0.15 + 0.7 * value_noise(X, seed=seed, octaves=6,
+                                       persistence=0.7)
+        val = tex * tex_w + cyl.albedo * (1.0 - tex_w)
+        in_core = inside > 0.55
+        best_s = np.where(valid, s, best_s)
+        tex_val = np.where(valid, val, tex_val)
+        hit_n = np.where(valid[..., None], n_map, hit_n)
+        hit_weak = np.where(valid, in_core, hit_weak)
+    # Camera-frame depth = z component of R X + t.
+    X = C + best_s[..., None] * dirs
+    z = (np.einsum("ij,hwj->hwi", R, X) + t)[..., 2]
+    img = np.clip(tex_val * 255.0, 0, 255)
+    return (img, np.where(np.isfinite(best_s), z, np.inf), hit_n, hit_weak)
+
+
 def make_scene(height: int = 96, width: int = 128, num_views: int = 5,
                seed: int = 0, weak_fraction: float = 0.25,
                arc_radius: float = 4.0, arc_span_deg: float = 40.0,
                noise_sigma: float = 0.0, curved_weak: bool = False,
-               geometry_jitter: float = 0.0) -> SyntheticScene:
+               geometry_jitter: float = 0.0,
+               workers: int = 1) -> SyntheticScene:
     """Build a fronto-ish scene: a large slanted background plane, a tilted
     foreground rectangle, and a textureless rectangle covering roughly
     `weak_fraction` of the image (exercises the TSAR weak-region path).
@@ -297,7 +407,8 @@ def make_scene(height: int = 96, width: int = 128, num_views: int = 5,
     single plane is wrong by construction. geometry_jitter > 0 perturbs
     rect origins/edges and the weak-patch placement with seed-derived
     noise (scene diversity across seeds; 0 keeps the bench/validation
-    geometry bit-stable for seed continuity)."""
+    geometry bit-stable for seed continuity). workers > 1 renders the
+    views in that many spawned processes, with the same result."""
     rng = np.random.default_rng(seed)
     f = 1.2 * width
     K = np.array([[f, 0, width / 2.0],
@@ -362,115 +473,24 @@ def make_scene(height: int = 96, width: int = 128, num_views: int = 5,
     depth = np.full((V, height, width), np.inf, np.float32)
     normal_world = np.zeros((V, height, width, 3), np.float32)
     weak_mask = np.zeros((V, height, width), bool)
-
-    xx, yy = np.meshgrid(np.arange(width) + 0.0, np.arange(height) + 0.0)
-    pix = np.stack([xx, yy, np.ones_like(xx)], axis=-1)
-    K_inv = np.linalg.inv(K)
-
-    for v in range(V):
-        R, t = Rs[v], ts[v]
-        C = -R.T @ t
-        dirs = np.einsum("ij,hwj->hwi", R.T @ K_inv, pix)  # ray dirs, world
-        best_s = np.full((height, width), np.inf)
-        tex_val = np.zeros((height, width))
-        hit_n = np.zeros((height, width, 3))
-        hit_weak = np.zeros((height, width), bool)
-        for rect in rects:
-            n = rect.normal
-            denom = dirs @ n
-            s = ((rect.origin - C) @ n) / np.where(np.abs(denom) < 1e-12,
-                                                   np.nan, denom)
-            X = C + s[..., None] * dirs
-            rel = X - rect.origin
-            u = rel @ rect.eu / (rect.eu @ rect.eu)
-            w_ = rel @ rect.ev / (rect.ev @ rect.ev)
-            valid = (np.isfinite(s) & (s > 0) & (u >= 0) & (u <= 1)
-                     & (w_ >= 0) & (w_ <= 1) & (s < best_s))
-            if rect.textured:
-                # Resolution-matched texture: extend the octave ladder so
-                # the finest octave has a ~2-4 px wavelength at THIS
-                # render size, with a 0.7 persistence (flatter spectrum,
-                # like real photographs). A fixed 4-octave/0.5 spectrum
-                # becomes per-pixel smooth at >=1K renders, and the
-                # Roberts weak-texture detector (correctly, per its
-                # reference thresholds) then flags most of the image as
-                # textureless — which is scene unrealism, not detector
-                # or engine error.
-                px_per_unit = f / 5.0      # typical scene depth ~5
-                octs = int(np.clip(np.ceil(np.log2(
-                    max(px_per_unit / 3.0, 4.0) / 2.0)) + 1, 4, 9))
-                val = 0.15 + 0.7 * value_noise(X, seed=seed, octaves=octs,
-                                               persistence=0.7)
-            else:
-                val = np.full(s.shape, rect.albedo)
-            in_patch = np.zeros(s.shape, bool)
-            if rect.flat_patch is not None:
-                # Soft-edged textureless patch: texture amplitude ramps to
-                # zero toward the core (real weak regions fade gradually,
-                # which is what gives TSAR's region RANSAC a halo of
-                # matchable, coplanar support around the flat core).
-                u0, u1, v0, v1 = rect.flat_patch
-                margin = 0.25
-                du = (np.minimum(u - u0, u1 - u) / (u1 - u0)) / margin
-                dv = (np.minimum(w_ - v0, v1 - w_) / (v1 - v0)) / margin
-                inside = np.minimum(du, dv)      # <0 outside, >=1 core
-                tex_w = np.clip(1.0 - inside, 0.0, 1.0)  # texture weight
-                tex_w = tex_w * tex_w * (3 - 2 * tex_w)
-                val = val * tex_w + rect.albedo * (1.0 - tex_w)
-                in_patch = inside > 0.55  # flat core (texture < ~3%)
-            best_s = np.where(valid, s, best_s)
-            tex_val = np.where(valid, val, tex_val)
-            hit_n = np.where(valid[..., None], n, hit_n)
-            hit_weak = np.where(valid, (not rect.textured) | in_patch,
-                                hit_weak)
-        for cyl in cyls:
-            av = cyl.axis / np.linalg.norm(cyl.axis)
-            oc = C - cyl.c0
-            d_perp = dirs - (dirs @ av)[..., None] * av
-            o_perp = oc - (oc @ av) * av
-            a = np.sum(d_perp * d_perp, axis=-1)
-            bq = 2.0 * (d_perp @ o_perp)
-            cq = o_perp @ o_perp - cyl.radius ** 2
-            disc = bq * bq - 4.0 * a * cq
-            ok_d = (disc > 0) & (a > 1e-12)
-            sq = np.sqrt(np.where(ok_d, disc, 0.0))
-            s = np.where(ok_d, (-bq - sq) / (2 * np.where(a > 1e-12, a, 1)),
-                         np.nan)                       # near (front) hit
-            X = C + s[..., None] * dirs
-            rel_ax = (X - cyl.c0) @ av
-            w_vec = (X - cyl.c0) - rel_ax[..., None] * av
-            n_map = w_vec / np.maximum(
-                np.linalg.norm(w_vec, axis=-1, keepdims=True), 1e-12)
-            fd = cyl.face_dir / np.linalg.norm(cyl.face_dir)
-            cosang = n_map @ fd
-            cos_half = np.cos(np.deg2rad(cyl.span_deg / 2))
-            valid = (np.isfinite(s) & (s > 0) & ok_d
-                     & (rel_ax >= 0) & (rel_ax <= cyl.height)
-                     & (cosang >= cos_half) & (s < best_s))
-            # Texture ramps in from the rim (angular + height edges) so
-            # the weak core has a matchable textured halo.
-            ang_in = (cosang - cos_half) / (1.0 - cos_half)   # 0 rim,1 apex
-            h_in = np.minimum(rel_ax, cyl.height - rel_ax) / cyl.height
-            inside = np.minimum(ang_in / cyl.rim,
-                                h_in / (cyl.rim * 0.5))
-            tex_w = np.clip(1.0 - inside, 0.0, 1.0)
-            tex_w = tex_w * tex_w * (3 - 2 * tex_w)
-            tex = 0.15 + 0.7 * value_noise(X, seed=seed, octaves=6,
-                                           persistence=0.7)
-            val = tex * tex_w + cyl.albedo * (1.0 - tex_w)
-            in_core = inside > 0.55
-            best_s = np.where(valid, s, best_s)
-            tex_val = np.where(valid, val, tex_val)
-            hit_n = np.where(valid[..., None], n_map, hit_n)
-            hit_weak = np.where(valid, in_core, hit_weak)
-        # Camera-frame depth = z component of R X + t.
-        X = C + best_s[..., None] * dirs
-        z = (np.einsum("ij,hwj->hwi", R, X) + t)[..., 2]
-        img = np.clip(tex_val * 255.0, 0, 255)
+    jobs = [(Rs[v], ts[v], K, rects, cyls, height, width, seed)
+            for v in range(V)]
+    if workers > 1:
+        # Spawned processes: the views are independent and the render is
+        # numpy in float64, so every view comes out bit for bit the same.
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(
+                max_workers=min(workers, V),
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            views = list(ex.map(_render_view, *zip(*jobs)))
+    else:
+        views = [_render_view(*job) for job in jobs]
+    for v, (img, z, hit_n, hit_weak) in enumerate(views):
         if noise_sigma > 0:
             img = np.clip(img + rng.normal(0, noise_sigma, img.shape), 0, 255)
         images[v] = img
-        depth[v] = np.where(np.isfinite(best_s), z, np.inf)
+        depth[v] = z
         normal_world[v] = hit_n
         weak_mask[v] = hit_weak
 
