@@ -86,7 +86,18 @@ line (the 2K scene renders in one spawned process per view):
        level, plane counts shared over the batch), one reference a level
        and one of them with a padding slot, on both samplers, both
        parities and dense: each against its plain version on the same
-       inputs, at the bounds of phases 3, 4 and 8(a).
+       inputs, at the bounds of phases 3, 4 and 8(a);
+10. the harnesses (tsar_mvs_tpu_torch/bench*.py) on phase 5's scene:
+   (a) bench.run at 1344x2048x8, 8 iterations, a warm-up and 2 timed
+       views: its JSON line; acc2_pm and acc2_final must reach 0.95, the
+       crosscheck must say "ok", and every view must launch B1 once per
+       cost evaluation and B2 once per volume (kernel_times.launch_plan),
+       B3 never; acc2_weak_final beside the TPU record's 1.0;
+   (b) bench_patchmatch.run on the direct and the s-volume sampler: a line
+       each, acc2_pm must reach 0.95, and each run launches its sampler's
+       kernels once per evaluation and volume;
+   (c) bench_scaling.run_count(1): one spawned NCCL rank at the harness's
+       defaults (96x128, 2 iterations, 2 scenes).
 
 Then PatchMatch's seconds split into B1, B2 and the rest (profiler),
 one JSON line of per-kernel results (the top-level numbers of a kernel
@@ -211,26 +222,6 @@ def b3_agreement(mk, mp, invalid, params) -> tuple[dict, bool]:
           and not r["best_view_mismatches"] and r["invalid_exact"]
           and r["valid_frac"] > 0.3)
     return r, ok
-
-
-def b2_agreement(vol, plain) -> dict:
-    """Phase 3's bounds on a B2 volume against its plain version, counted
-    a plane block at a time (no sort of the whole volume): median |delta|
-    0 (at most half the voxels differ), q99.9 <= 1 (at most 0.1% differ
-    by more than 1 intensity level) and max <= 2."""
-    nonzero = above_1 = 0
-    worst = 0.0
-    for k in range(0, vol.shape[0], 16):
-        d = (vol[k:k + 16].float() - plain[k:k + 16].float()).abs()
-        nonzero += int((d > 0).sum())
-        above_1 += int((d > 1.0).sum())
-        worst = max(worst, float(d.max()))
-    n = vol.numel()
-    r = {"planes": int(vol.shape[0]), "frac_nonzero": nonzero / n,
-         "frac_gt_1": above_1 / n, "max": worst}
-    r["pass"] = (r["frac_nonzero"] < 0.5 and r["frac_gt_1"] <= 1e-3
-                 and worst <= 2.0)
-    return r
 
 
 def check_ncc(lv: dict, gt: dict) -> float:
@@ -911,9 +902,9 @@ def check_batch_sites(scene, scene_gt, dev, cut: int, label: str) -> dict:
     the view tables must drop. Per level and sampler: the views are the
     valid slots' image ids, each volume has its slot's shared plane count
     and meets phase 3's bounds against build_svolume_view_plain
-    (b2_agreement); the cost function on site_fields meets phase 4's
-    bounds against multiview_cost_plain on the site's volumes, or phase
-    8(a)'s against multiview_cost_direct_plain on its views (the smooth
+    (kernel_times.b2_agreement); the cost function on site_fields meets
+    phase 4's bounds against multiview_cost_plain on the site's volumes,
+    or phase 8(a)'s against multiview_cost_direct_plain on its views (the smooth
     field on both parities and dense, the random one on parity 0); one
     launch a volume and one a cost evaluation. Prints one line; returns
     the largest |delta| of each kernel by wrapper key."""
@@ -921,6 +912,7 @@ def check_batch_sites(scene, scene_gt, dev, cut: int, label: str) -> dict:
     import numpy as np
     import torch
     from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch import pipeline
     from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch.models import patchmatch as pm
@@ -982,7 +974,7 @@ def check_batch_sites(scene, scene_gt, dev, cut: int, label: str) -> dict:
                     plain = cuda_warp.build_svolume_view_plain(
                         lv.imgs[ids[k]], A[slot], b[slot], s_lo,
                         (s_hi - s_lo) / (S - 1), S)
-                    b2 = b2_agreement(sampler.data[k], plain)
+                    b2 = kt.b2_agreement(sampler.data[k], plain)
                     del plain
                     case["b2"].append(b2)
                     ok &= b2["pass"]
@@ -1135,6 +1127,78 @@ def run_sharded_ranks_phase(dev) -> dict:
     return res
 
 
+# Phase 10: timed views of the bench and of the sampler A/B, each after
+# one warm-up run.
+BENCH_REPEATS, AB_REPEATS = 2, 2
+# The JAX package's acc2_weak_final of the bench on this scene (TPU v5e,
+# BENCH_r05.json), printed beside the port's.
+ACC2_WEAK_FINAL_TPU = 1.0
+
+
+def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
+    """Phase 10: the bench, the sampler A/B and one scaling point on the
+    rendered 2K scene (no new render, no subprocess that renders)."""
+    import math
+    import torch
+    from tsar_mvs_tpu_torch import bench, bench_patchmatch, bench_scaling
+    t_phase = time.perf_counter()
+    views = 1 + BENCH_REPEATS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    launches: dict = {}
+    res = bench.run(scene_gt, iters=8, repeats=BENCH_REPEATS,
+                    ncc_impl="auto", small=False, device=dev,
+                    after_views=lambda: launches.update(read_launches()))
+    print(f"bench (phase 10a): {json.dumps(res)}", flush=True)
+    expect = {"ncc": views * evaluations, "warp": views * builds,
+              "direct": 0}
+    bench_s = time.perf_counter() - t_phase
+    info = {"seconds": bench_s, "views": views, "launches": launches,
+            "expected": expect, "acc2_weak_final": res["acc2_weak_final"],
+            "acc2_weak_final_tpu_v5e": ACC2_WEAK_FINAL_TPU}
+    print(f"bench (phase 10a): {json.dumps(info)}", flush=True)
+    if launches != expect:
+        raise SystemExit(f"bench: launches {launches}, expected {expect} "
+                         f"(one per evaluation and volume in each of "
+                         f"{views} views)")
+    if (res["acc2_pm"] < 0.95 or res["acc2_final"] < 0.95
+            or not res["cuda_crosscheck"].startswith("ok")):
+        raise SystemExit(f"bench below its limits: {res}")
+
+    t = time.perf_counter()
+    runs = 1 + AB_REPEATS
+    ab, ab_launches = [], {}
+    for impl in ("direct", "svolume"):
+        reset_launches()
+        ab += bench_patchmatch.run(scene_gt, [impl], iters=8,
+                                   repeats=AB_REPEATS, device=dev)
+        ab_launches[impl] = read_launches()
+    ab_s = time.perf_counter() - t
+    info = {"seconds": ab_s, "launches": ab_launches}
+    print(f"sampler A/B (phase 10b): {json.dumps(info)}", flush=True)
+    if any("error" in r or r["acc2_pm"] < 0.95 for r in ab):
+        raise SystemExit(f"sampler A/B below its limits: {ab}")
+    if ab_launches != {
+            "direct": {"ncc": 0, "warp": 0, "direct": runs * evaluations},
+            "svolume": {"ncc": runs * evaluations, "warp": runs * builds,
+                        "direct": 0}}:
+        raise SystemExit(f"sampler A/B launches {ab_launches}")
+
+    t = time.perf_counter()
+    scale = bench_scaling.run_count(1)
+    scale_s = time.perf_counter() - t
+    print(f"scaling (phase 10c): {json.dumps(bench_scaling.record(scale))}",
+          flush=True)
+    if not (scale["wall_s"] > 0 and math.isfinite(scale["cost_sum"])):
+        raise SystemExit(f"scaling point: {scale}")
+    out = {"bench_s": bench_s, "ab_s": ab_s, "scaling_s": scale_s,
+           "scaling_cost_sum": scale["cost_sum"],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"harnesses (phase 10): {json.dumps(out)}", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1239,6 +1303,8 @@ def main() -> int:
                                     1, f"{H}x{W}x{VIEWS}")]
     torch.cuda.empty_cache()
     site_worst.append(run_sharded_ranks_phase(dev)["site_worst"])
+    torch.cuda.empty_cache()
+    run_harness_phase(scene_gt, dev, evaluations, builds)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head_b1 = next(sh for sh in b1_shapes if sh["level"] == 1

@@ -126,11 +126,11 @@ def test_cli_view_writes_artifacts(scene, tmp_path):
 
 
 def test_cli_scene_fuse_not_ported(tmp_path):
-    """What is not ported yet exits 2 before touching the scene: bench,
-    and an unknown command. (`scene --sharded on` is ported:
-    tests/test_torch_parallel.py::test_cli_scene_sharded_on_writes_artifacts.)"""
+    """An unknown command exits 2 before touching the scene. (`scene
+    --sharded on` and `bench` are ported: tests/test_torch_parallel.py::
+    test_cli_scene_sharded_on_writes_artifacts and
+    tests/test_torch_bench.py.)"""
     from tsar_mvs_tpu_torch import cli
-    assert cli.main(["bench"]) == 2
     assert cli.main(["sweep"]) == 2
     assert not (tmp_path / "results").exists()
 
@@ -156,7 +156,8 @@ def test_port_imports_no_jax():
     for mod in ("pipeline", "ops.cuda_ncc", "models.fusion", "config", "eval",
                 "kernel_times", "models.weak_texture", "utils.synthetic",
                 "utils.native", "parallel.mesh", "parallel.scene_sharded",
-                "parallel.distributed"):
+                "parallel.distributed", "bench", "bench_patchmatch",
+                "bench_scaling"):
         assert f"tsar_mvs_tpu_torch.{mod}" in res["mods"]
     assert res["loaded"] == []
 

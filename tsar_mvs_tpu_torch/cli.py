@@ -6,6 +6,7 @@
     python -m tsar_mvs_tpu_torch.cli fuse <scene_dir> [--depth_diff=0.01 ...]
     python -m tsar_mvs_tpu_torch.cli eval <est> <gt> [--fscore]
     python -m tsar_mvs_tpu_torch.cli synth <out_dir> [--height --width --views]
+    python -m tsar_mvs_tpu_torch.cli bench [--device cpu]
 
 A first argument that is a flag or an image file runs `gipuma`, as the
 reference binary's own command line does. `--device` defaults to `cuda`;
@@ -14,8 +15,9 @@ unless `--device cpu` is given. `-color_processing` (colour NCC) and
 `--n_best` above 1 run PatchMatch on the direct sampler (kernel B3 on the
 card). `scene --sharded on` runs each rank's slice of the reference views
 (``parallel/``; ranks join through the TSAR_* environment, see
-``parallel/distributed.py``). Not ported yet, exiting with status 2:
-`bench`.
+``parallel/distributed.py``); without that environment, on a host with
+more than one card, `scene` spawns one rank per card. `bench` is the
+one-view benchmark (``tsar_mvs_tpu_torch/bench.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -73,11 +77,6 @@ def _device(ns) -> str | None:
               file=sys.stderr)
         return None
     return dev
-
-
-def _not_ported(what: str) -> int:
-    print(f"{what} is not ported yet", file=sys.stderr)
-    return 2
 
 
 def cmd_gipuma(argv: list[str]) -> int:
@@ -246,9 +245,11 @@ def cmd_scene(argv: list[str]) -> int:
                    help="view sharding over the ranks of a process group "
                         "(joined from the TSAR_COORDINATOR, "
                         "TSAR_NUM_PROCESSES, TSAR_PROCESS_ID environment; "
-                        "TSAR_BACKEND nccl or gloo): 'on' shards at any "
-                        "world size, 'auto' when the group has more than "
-                        "one rank, 'off' runs the views one after another")
+                        "TSAR_BACKEND nccl or gloo; without it, on a host "
+                        "with more than one card, one spawned NCCL rank "
+                        "per card): 'on' shards at any world size, 'auto' "
+                        "when the group has more than one rank (not with "
+                        "--resume), 'off' runs the views one after another")
     _add_device(p)
     ns = p.parse_args(argv)
     if ns.sharded == "on" and ns.color_processing:
@@ -259,27 +260,51 @@ def cmd_scene(argv: list[str]) -> int:
     if device is None:
         return 1
     import torch.distributed as dist
-    from tsar_mvs_tpu_torch import pipeline
     from tsar_mvs_tpu_torch.parallel import distributed
+    sharded = {"auto": "auto", "on": True, "off": False}[ns.sharded]
+    args = (ns.scene_dir, _alg_params(ns), ns.seed, not ns.no_ply,
+            ns.resume, sharded, ns.fuse)
+    if (ns.sharded != "off" and not ns.resume and not dist.is_initialized()
+            and not os.environ.get("TSAR_COORDINATOR")
+            and device == "cuda" and torch.cuda.device_count() > 1):
+        # As the JAX package shards over every device the process sees:
+        # one NCCL rank per card (a card named by index runs alone). The
+        # kernels are built here once, not in every rank.
+        from tsar_mvs_tpu_torch import _build
+        _build.load_library()
+        with tempfile.TemporaryDirectory() as tmp:
+            distributed.run_ranks(_scene_rank, torch.cuda.device_count(),
+                                  f"file://{tmp}/pg", "nccl",
+                                  ("cuda", *args))
+        return 0
     joined = False
     if ns.sharded != "off" and not dist.is_initialized():
         joined = distributed.initialize(
             "gloo" if torch.device(device).type == "cpu" else None)
     try:
-        pipeline.process_scene(
-            ns.scene_dir, _alg_params(ns), seed=ns.seed,
-            write_ply=not ns.no_ply, resume=ns.resume, device=device,
-            sharded={"auto": "auto", "on": True, "off": False}[ns.sharded])
-        # Every rank's artifacts are on disk once process_scene returns
-        # (on either path its last step is a collective); rank 0 fuses
-        # them.
-        if ns.fuse and (not dist.is_initialized() or dist.get_rank() == 0):
-            out = pipeline.fuse_scene(ns.scene_dir, device=device)
-            print(f"fused cloud: {out}")
+        _scene_rank(device, *args)
     finally:
         if joined:
             dist.destroy_process_group()
     return 0
+
+
+def _scene_rank(device: str, scene_dir: str, params: AlgorithmParams,
+                seed: int, write_ply: bool, resume: bool,
+                sharded: str | bool, fuse: bool) -> None:
+    """`scene` in this process (a module-level function, so that spawned
+    ranks can run it): process_scene on `device` (in a group a bare "cuda"
+    is the rank's card), then, with `fuse`, fuse_scene on rank 0. Every
+    rank's artifacts are on disk once process_scene returns (on either
+    path its last step is a collective)."""
+    import torch.distributed as dist
+    from tsar_mvs_tpu_torch import pipeline
+    pipeline.process_scene(scene_dir, params, seed=seed,
+                           write_ply=write_ply, resume=resume, device=device,
+                           sharded=sharded)
+    if fuse and (not dist.is_initialized() or dist.get_rank() == 0):
+        out = pipeline.fuse_scene(scene_dir, device=device)
+        print(f"fused cloud: {out}")
 
 
 def cmd_view(argv: list[str]) -> int:
@@ -393,7 +418,9 @@ def cmd_eval(argv: list[str]) -> int:
 
 
 def cmd_bench(argv: list[str]) -> int:
-    return _not_ported("bench")
+    """The one-view benchmark (tsar_mvs_tpu_torch/bench.py)."""
+    from tsar_mvs_tpu_torch import bench
+    return bench.main(argv)
 
 
 COMMANDS = {"gipuma": cmd_gipuma, "scene": cmd_scene, "view": cmd_view,

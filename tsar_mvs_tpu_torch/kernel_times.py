@@ -335,6 +335,26 @@ def agreement(mk, mp) -> dict:
                 ((mk.best_view != mp.best_view) & (mp.ratio != 1.0)).sum())}
 
 
+def b2_agreement(vol, plain) -> dict:
+    """chip_smoke.py phase 3's bounds on a B2 volume against its plain
+    version, counted a plane block at a time (no sort of the whole
+    volume): median |delta| 0 (at most half the voxels differ), q99.9 <= 1
+    (at most 0.1% differ by more than 1 intensity level) and max <= 2."""
+    nonzero = above_1 = 0
+    worst = 0.0
+    for k in range(0, vol.shape[0], 16):
+        d = (vol[k:k + 16].float() - plain[k:k + 16].float()).abs()
+        nonzero += int((d > 0).sum())
+        above_1 += int((d > 1.0).sum())
+        worst = max(worst, float(d.max()))
+    n = vol.numel()
+    r = {"planes": int(vol.shape[0]), "frac_nonzero": nonzero / n,
+         "frac_gt_1": above_1 / n, "max": worst}
+    r["pass"] = (r["frac_nonzero"] < 0.5 and r["frac_gt_1"] <= 1e-3
+                 and worst <= 2.0)
+    return r
+
+
 def time_b1_level(lv: dict, gt: dict) -> list[dict]:
     """Every B1 shape of one level: evaluation ms (CUDA events around
     `multiview_cost_svolume`), the kernel's own device ms and launches

@@ -1,8 +1,9 @@
 """SLIC superpixels as iterative k-means on a fixed grid (port of
 ``tsar_mvs_tpu.ops.slic``, the gSLICr engine): CIELAB features, grid
 cluster init, association over the 3x3 neighbouring cells, centre update
-by scatter-add. Distance sqrt(dcolor^2 + (dxy * coh_weight /
-spixel_size)^2), colour term unnormalised.
+by scatter-add, optional connectivity suppression. Distance
+sqrt(dcolor^2 + (dxy * coh_weight / spixel_size)^2), colour term
+unnormalised. TSAR runs it without connectivity enforcement.
 """
 
 from __future__ import annotations
@@ -47,8 +48,11 @@ class SlicResult(NamedTuple):
 
 
 def slic(feature: torch.Tensor, spixel_size: int = 20,
-         coh_weight: float = 5.0, n_iters: int = 5) -> SlicResult:
-    """Segment a feature image (H, W, 3) into ~(H/S)*(W/S) superpixels."""
+         coh_weight: float = 5.0, n_iters: int = 5,
+         enforce_connectivity: bool = False) -> SlicResult:
+    """Segment a feature image (H, W, 3) into ~(H/S)*(W/S) superpixels;
+    `enforce_connectivity` runs two passes of suppress_local_label over
+    the labels."""
     H, W = feature.shape[:2]
     dev = feature.device
     S = spixel_size
@@ -115,9 +119,33 @@ def slic(feature: torch.Tensor, spixel_size: int = 20,
         label = associate(centers_xy, centers_color)
     if counts is None:
         _, _, counts = update(label)
+    if enforce_connectivity:
+        label = suppress_local_label(suppress_local_label(label))
     return SlicResult(labels=label, centers_xy=centers_xy,
                       centers_color=centers_color, counts=counts,
                       map_size=(map_h, map_w))
+
+
+def suppress_local_label(label: torch.Tensor) -> torch.Tensor:
+    """Connectivity suppression (gSLICr's supress_local_lable): a pixel
+    with 16 or more of its 5x5 neighbours (wrapping round at the image
+    edges) under another label takes the last such label in scan order,
+    rows outer and columns inner. A 2-pixel border keeps its labels."""
+    H, W = label.shape
+    diff_count = torch.zeros((H, W), dtype=torch.int32, device=label.device)
+    diff_label = torch.full_like(label, -1)
+    for dj in range(-2, 3):
+        for di in range(-2, 3):
+            n = torch.roll(label, shifts=(-dj, -di), dims=(0, 1))
+            differs = n != label
+            diff_count += differs.to(torch.int32)
+            diff_label = torch.where(differs, n, diff_label)
+    out = torch.where(diff_count >= 16, diff_label, label)
+    out[:2] = label[:2]
+    out[-2:] = label[-2:]
+    out[:, :2] = label[:, :2]
+    out[:, -2:] = label[:, -2:]
+    return out
 
 
 def superpixel_graph_host(labels) -> tuple[dict[int, set[int]],
