@@ -7,7 +7,9 @@ Phases, one line each; any failure exits non-zero without the final
 line (the 2K scene renders in one spawned process per view):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
    no CUDA device is a failure;
-2. build the CUDA kernels from csrc/ (timed);
+2. build the CUDA kernels from csrc/ (timed, each source's nvcc and the
+   link), with ptxas's registers and spills per kernel and kernel B3's
+   instances' registers and local bytes from cudaFuncGetAttributes;
 3. kernel B2 (s-volume build) against its plain PyTorch version for the
    1344x2048 synthetic scene's cameras, one source view at its full plane
    count: |delta| median 0, q99.9 <= 1.0, max <= 2.0 intensity levels;
@@ -48,14 +50,17 @@ line (the 2K scene renders in one spawned process per view):
    reach 0.95), launching kernel B3 only;
 8. the direct sampler (kernel B3), one line per part:
    (a) B3 against its plain version at 672x1024 (level 2, within phase
-       4's loop): random and smooth fields, 1, 4 and 8 candidates with
-       invalid (d = 0) ones, both parities and the dense grid, n_best 1
-       and 3, grayscale and colour, and a 7x5 window (the generic loop);
-       cost and ratio within 1e-3, invalid candidates exactly cost_max
-       with view -1, the best view equal off ties;
-   (b) B3 timed at every shape the direct path launches
+       4's loop): random and smooth fields, 1, 3, 4, 6 and 8 candidates
+       with invalid (d = 0) ones, both parities and the dense grid,
+       n_best 1, 3 and 5, grayscale and colour, 7 and 9 views, and a 7x5
+       window (the generic loop); cost and ratio equal (max |delta| 0.0),
+       invalid candidates exactly cost_max with view -1, the best view
+       equal off ties;
+   (b) B3 timed at every shape the direct path launches, on every level
+       in grayscale, with n_best 3 and in colour
        (kernel_times.time_b3_level, phase 4's loop), beside its plain
-       version and its bound;
+       version, its bound and the ceiling of a kernel that rounds every
+       step; equal to its plain version at each;
    (c) view 0 through process_view with ncc_impl="direct": B3 launches
        once per cost evaluation (kernel_times.launch_plan), B1 and B2
        never; acc2_pm and acc2_final must reach 0.95;
@@ -92,15 +97,18 @@ line (the 2K scene renders in one spawned process per view):
        views: its JSON line; acc2_pm and acc2_final must reach 0.95, the
        crosscheck must say "ok", and every view must launch B1 once per
        cost evaluation and B2 once per volume (kernel_times.launch_plan),
-       B3 never; acc2_weak_final beside the TPU record's 1.0;
+       B3 never; acc2_weak_final beside the TPU record's 1.0; then the
+       crosscheck of a direct-sampler bench (B3 too, equal to the bit);
    (b) bench_patchmatch.run on the direct and the s-volume sampler: a line
        each, acc2_pm must reach 0.95, and each run launches its sampler's
        kernels once per evaluation and volume;
    (c) bench_scaling.run_count(1): one spawned NCCL rank at the harness's
        defaults (96x128, 2 iterations, 2 scenes).
 
-Then PatchMatch's seconds split into B1, B2 and the rest (profiler),
-one JSON line of per-kernel results (the top-level numbers of a kernel
+After phase 5, PatchMatch's seconds split into B1, B2 and the rest
+(profiler), and on the direct paths (grayscale, colour, n_best 3) into B3
+and the rest, B3 once per evaluation. At the end one JSON line of
+per-kernel results (the top-level numbers of a kernel
 are those of its level-1 shape, "shapes" holds every timed shape and
 "launches_by_shape" the counted launches at each of its main path: B1's
 and B2's the default view's, B3's the direct view's), the card line, and
@@ -204,7 +212,8 @@ def b1_agreement(mk, mp, invalid, params) -> tuple[dict, bool]:
 
 def b3_agreement(mk, mp, invalid, params) -> tuple[dict, bool]:
     """Phase 8(a)'s bounds on a B3 result against its plain version: cost
-    and ratio within 1e-3, the best view equal off ties, invalid
+    and ratio equal (max |delta| 0.0: the kernel rounds every step in the
+    plain version's order), the best view equal off ties, invalid
     candidates exactly cost_max with view -1, a valid view on more than
     30% of the pixels."""
     from tsar_mvs_tpu_torch import kernel_times as kt
@@ -218,7 +227,7 @@ def b3_agreement(mk, mp, invalid, params) -> tuple[dict, bool]:
              and (mp.cost[invalid] == params.cost_max).all()
              and (mk.best_view[invalid] == -1).all()),
          "valid_frac": float((mk.best_view >= 0).float().mean())}
-    ok = (r["max"] <= 1e-3 and r["ratio_max"] <= 1e-3
+    ok = (r["max"] == 0.0 and r["ratio_max"] == 0.0
           and not r["best_view_mismatches"] and r["invalid_exact"]
           and r["valid_frac"] > 0.3)
     return r, ok
@@ -283,16 +292,44 @@ def check_ncc(lv: dict, gt: dict) -> float:
     return worst
 
 
-# Phase 8(a) cases: (field, candidates, parity, n_best, colour, window).
-B3_CASES = (("random", 8, 0, 1, False, (11, 11)),
-            ("random", 1, None, 1, False, (11, 11)),
-            ("smooth", 4, 1, 3, False, (11, 11)),
-            ("smooth", 1, 0, 1, False, (11, 11)),
-            ("smooth", 8, None, 3, True, (11, 11)),
-            ("random", 4, 0, 3, True, (11, 11)),
-            ("smooth", 1, 1, 1, True, (11, 11)),
-            ("random", 8, 1, 1, True, (11, 11)),
-            ("random", 4, 0, 1, False, (7, 5)))
+# Phase 8(a) cases: (field, candidates, parity, n_best, colour, window,
+# views). Seven views are the level's sources; nine add two of them again
+# under slightly moved warp factors (more views than one group holds at
+# one candidate). Candidate counts 3 and 6 leave kernel slots unused;
+# n_best 5 with seven views takes the 32-entry aggregation.
+B3_CASES = (("random", 8, 0, 1, False, (11, 11), 7),
+            ("random", 1, None, 1, False, (11, 11), 7),
+            ("smooth", 4, 1, 3, False, (11, 11), 7),
+            ("smooth", 1, 0, 1, False, (11, 11), 7),
+            ("smooth", 8, None, 3, True, (11, 11), 7),
+            ("random", 4, 0, 3, True, (11, 11), 7),
+            ("smooth", 1, 1, 1, True, (11, 11), 7),
+            ("random", 8, 1, 1, True, (11, 11), 7),
+            ("random", 4, 0, 1, False, (7, 5), 7),
+            ("random", 1, 0, 1, False, (11, 11), 9),
+            ("smooth", 1, None, 3, True, (11, 11), 9),
+            ("smooth", 4, 1, 1, False, (11, 11), 9),
+            ("smooth", 4, 0, 5, False, (11, 11), 7),
+            ("random", 1, 1, 5, True, (11, 11), 7),
+            ("smooth", 3, 0, 1, False, (11, 11), 7),
+            ("random", 6, None, 3, True, (7, 5), 9))
+
+
+def nine_views(lv: dict, color: bool):
+    """Kernel B3's views for nine sources: the level's seven, then the
+    first two again with A scaled by 1.002 and b by 0.998 (distinct warps,
+    ids + 100)."""
+    import torch
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.ops import cuda_direct
+    imgs, ids, cams = lv["imgs"], lv["ids"], lv["cams"]
+    if color:
+        imgs = kt.color_from_gray(imgs)
+    idx = torch.cat([ids, ids[:2]])
+    A = torch.cat([cams.A[ids], cams.A[ids[:2]] * 1.002])
+    b = torch.cat([cams.b[ids], cams.b[ids[:2]] * 0.998])
+    return cuda_direct.make_views(imgs[idx], A, b,
+                                  torch.cat([ids, ids[:2] + 100]))
 
 
 def check_direct(lv: dict, gt: dict) -> float:
@@ -309,11 +346,13 @@ def check_direct(lv: dict, gt: dict) -> float:
     dev = lv["imgs"].device
     Hs, Ws = lv["imgs"].shape[1:]
     g = torch.Generator(device=dev).manual_seed(11)
-    inputs = {False: kt.direct_inputs(lv, False)[0],
-              True: kt.direct_inputs(lv, True)[0]}
+    inputs = {(False, 7): kt.direct_inputs(lv, False)[0],
+              (True, 7): kt.direct_inputs(lv, True)[0],
+              (False, 9): nine_views(lv, False),
+              (True, 9): nine_views(lv, True)}
     rgb0 = kt.color_from_gray(lv["imgs"][0])
     cases, ok_all, worst = [], True, 0.0
-    for field, C, parity, n_best, color, window in B3_CASES:
+    for field, C, parity, n_best, color, window, V in B3_CASES:
         params = dataclasses.replace(lv["params"], n_best=n_best,
                                      box_hsize=window[0],
                                      box_vsize=window[1])
@@ -332,7 +371,7 @@ def check_direct(lv: dict, gt: dict) -> float:
             n, d = cb.parity_compress_vec(n, parity), cb.parity_compress(
                 d, parity)
             invalid = cb.parity_compress(invalid, parity)
-        args = (inputs[color], *ncc.plane_scalars(n, d, stats), stats,
+        args = (inputs[(color, V)], *ncc.plane_scalars(n, d, stats), stats,
                 params, parity)
         before = cuda_direct.LAUNCHES
         mk = cuda_direct.multiview_cost_direct(*args)
@@ -341,7 +380,7 @@ def check_direct(lv: dict, gt: dict) -> float:
         agree, ok = b3_agreement(mk, mp, invalid, params)
         r = {"field": field, "C": C, "parity": parity, "n_best": n_best,
              "channels": 3 if color else 1, "window": list(window),
-             "launches": launches, **agree}
+             "views": V, "launches": launches, **agree}
         ok = ok and launches == 1
         ok_all &= ok
         worst = max(worst, r["max"])
@@ -1165,6 +1204,13 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
     if (res["acc2_pm"] < 0.95 or res["acc2_final"] < 0.95
             or not res["cuda_crosscheck"].startswith("ok")):
         raise SystemExit(f"bench below its limits: {res}")
+    # The crosscheck a TSAR_NCC_IMPL=direct bench makes: B3 too, exact.
+    check = bench.cuda_crosscheck(
+        scene_gt, bench.bench_params(scene_gt, 8, "direct", False), dev)
+    print(f"bench crosscheck on the direct sampler (phase 10a): {check}",
+          flush=True)
+    if not check.startswith("ok") or "B3 0" not in check:
+        raise SystemExit(f"bench crosscheck on the direct sampler: {check}")
 
     t = time.perf_counter()
     runs = 1 + AB_REPEATS
@@ -1208,9 +1254,11 @@ def main() -> int:
     from tsar_mvs_tpu_torch.utils.synthetic import make_scene
     from tsar_mvs_tpu_torch import _build, pipeline
     from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.ops import cuda_direct
     from tsar_mvs_tpu_torch.utils import native
 
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
     card = kt.card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -1218,8 +1266,12 @@ def main() -> int:
     t = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t
-    print(f"build: {build_s:.2f} s ({_build.library_path().name}); "
+    print(f"build: {build_s:.2f} s ({_build.library_path().name}), "
+          f"seconds to each source's end {json.dumps(_build.BUILD_SECONDS)}; "
           f"{' | '.join(_build.kernel_resources())}", flush=True)
+    b3_instances = cuda_direct.kernel_attributes()
+    print(f"B3 instances (cudaFuncGetAttributes): "
+          f"{json.dumps(b3_instances)}", flush=True)
     # Which path the weak_texture stage's seconds belong to.
     host_lib = ("loaded" if native.load() is not None
                 else "not available, numpy and scipy run instead")
@@ -1252,6 +1304,8 @@ def main() -> int:
         del lv
         torch.cuda.empty_cache()
     print(f"B3 shapes (phase 8b): {json.dumps(b3_shapes)}", flush=True)
+    print(f"elapsed after the kernel phases: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     for sh in b1_shapes:
         if (sh["max_abs_err"] > 1e-3 or sh["ratio_max_abs_err"] > 1e-3
                 or sh["best_view_mismatches"]):
@@ -1266,7 +1320,7 @@ def main() -> int:
         if sh["max_abs_err"] > 2.0:
             raise SystemExit(f"B2 disagrees with its plain version at {sh}")
     for sh in b3_shapes:
-        if (sh["max_abs_err"] > 1e-3 or sh["ratio_max_abs_err"] > 1e-3
+        if (sh["max_abs_err"] != 0.0 or sh["ratio_max_abs_err"] != 0.0
                 or sh["best_view_mismatches"]):
             raise SystemExit(f"B3 disagrees with its plain version at "
                              f"{sh}")
@@ -1288,6 +1342,14 @@ def main() -> int:
     by_kind = kt.b1_seconds_by_kind(plan, split["b1_each_us"])
     print(f"B1 on the main path, [seconds, launches] by level and kind: "
           f"{json.dumps(by_kind)}", flush=True)
+    direct_split = kt.direct_splits(scene, params, dev)
+    print(f"PatchMatch on the direct paths (B3 split): "
+          f"{json.dumps(direct_split)}", flush=True)
+    for name, sp in direct_split.items():
+        if sp["device"] is None or sp["device"]["b3"]["launches"] != \
+                evaluations:
+            raise SystemExit(f"direct path {name}: B3 not launched once per "
+                             f"evaluation ({evaluations}): {sp}")
     torch.cuda.empty_cache()
     scene_res = run_scene_phase(scene_gt, root, dev)
     torch.cuda.empty_cache()
@@ -1340,8 +1402,14 @@ def main() -> int:
                             *(w["direct"] for w in site_worst),
                             max(sh["max_abs_err"] for sh in b3_shapes)),
          **{k: head_b3[k] for k in keys}, "shapes": b3_shapes,
-         "launches_by_shape": direct_res["launches_by_shape"]},
+         "launches_by_shape": direct_res["launches_by_shape"],
+         "direct_paths": direct_split,
+         "instances": b3_instances,
+         "instances_launched": sorted(
+             list(k) for k in cuda_direct.LAUNCHES_BY_INSTANCE),
+         "build_seconds": _build.BUILD_SECONDS},
     ]
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

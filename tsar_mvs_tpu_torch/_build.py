@@ -14,6 +14,7 @@ code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +22,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -40,12 +42,17 @@ SIGNATURES = {
     "tsar_direct_multiview": [
         _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
         ctypes.POINTER(_P), ctypes.POINTER(_F), ctypes.POINTER(_F),
-        ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P,
-        _P, _P],
+        ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _I,
+        _P, _P, _P, _P],
+    "tsar_direct_instances": [ctypes.POINTER(_I), _I],
 }
 
 _lib: ctypes.CDLL | None = None
 BUILD_LOG = ""
+# Seconds from the start of the build to the end of each source's nvcc
+# (they run together) and of the link; empty when this process did not
+# build.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -81,26 +88,41 @@ def load_library() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+                contextlib.ExitStack() as open_logs:
             # One nvcc per source, all started together, then one link.
+            t0 = time.perf_counter()
             jobs = []
             for src in sorted(CSRC.glob("*.cu")):
                 obj = os.path.join(tmp, src.stem + ".o")
-                jobs.append((obj, subprocess.Popen(
+                log = open_logs.enter_context(
+                    open(os.path.join(tmp, src.stem + ".log"), "w+"))
+                jobs.append((src.name, obj, log, subprocess.Popen(
                     [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
-            logs = [proc.communicate()[0] for _, proc in jobs]
+                    stdout=log, stderr=subprocess.STDOUT)))
+            running = {name for name, *_ in jobs}
+            while running:
+                for name, _, _, proc in jobs:
+                    if name in running and proc.poll() is not None:
+                        BUILD_SECONDS[name] = time.perf_counter() - t0
+                        running.discard(name)
+                time.sleep(0.05)
+            logs = []
+            for _, _, log, _ in jobs:
+                log.seek(0)
+                logs.append(log.read())
             BUILD_LOG = "".join(logs)
-            failed = [proc.returncode for _, proc in jobs
+            failed = [proc.returncode for *_, proc in jobs
                       if proc.returncode != 0]
             if failed:
                 raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
                                    f"{BUILD_LOG}")
             lib_tmp = os.path.join(tmp, out.name)
             link = subprocess.run(
-                [nvcc, "-shared", "-o", lib_tmp, *(obj for obj, _ in jobs)],
+                [nvcc, "-shared", "-o", lib_tmp,
+                 *(obj for _, obj, *_ in jobs)],
                 capture_output=True, text=True)
+            BUILD_SECONDS["link"] = time.perf_counter() - t0
             BUILD_LOG += link.stdout + link.stderr
             if link.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({link.returncode}):"

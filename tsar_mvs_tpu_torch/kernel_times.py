@@ -6,10 +6,16 @@ the same grids and candidate counts as B1's.
 
     python -m tsar_mvs_tpu_torch.kernel_times render <scene_dir>
     python -m tsar_mvs_tpu_torch.kernel_times time <scene_dir> [--json OUT]
+    python -m tsar_mvs_tpu_torch.kernel_times b3 <scene_dir> [--json OUT]
 
 `render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
-pair.txt) and view 0's ground truth (`gt_view0.npz`) once; the host render
-takes minutes, so a scene on disk is reused. `time` needs a CUDA device.
+pair.txt) and view 0's ground truth (`gt_view0.npz`) once (one spawned
+process per view), so a scene on disk is reused. `time` needs a CUDA
+device. `b3` times kernel B3 alone: every shape and variant of
+`time_b3_level` at every level, then PatchMatch's split on the direct
+sampler in grayscale, colour and n_best 3; it uses only the functions of
+`ops/cuda_direct.py` that every version of the port has, so a copy of
+this file in an older checkout times that checkout's kernel.
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -23,9 +29,9 @@ on a smooth one (the ground-truth planes with a refine-scale
 perturbation: what propagation and refinement evaluate once the state
 has converged), and on the coarsest level's dense grid (initialisation);
 kernel B2 on each level's largest view volume; kernel B3 on B1's grids,
-candidate counts and fields, in grayscale with n_best 1 (the direct
-path of `ncc_impl="direct"`) and, on the finest level, with n_best 3 and in
-colour (channels from `color_from_gray`). Kernel B1 has one inner
+candidate counts and fields, on every level in grayscale with n_best 1
+(the direct path of `ncc_impl="direct"`), with n_best 3 and in colour
+(channels from `color_from_gray`). Kernel B1 has one inner
 loop for the default 11x11 stride-2 window and a generic one for every
 other window; `time_b1_windows` times both on the full-resolution smooth
 field (9x9 and 13x13 beside the default) per window sample.
@@ -33,7 +39,10 @@ field (9x9 and 13x13 beside the default) per window sample.
 The bound of a shape is the larger of bytes / 3.35 TB/s (each input read
 and each output written once; of the volume, the bytes this plane field
 touches) and operations / 67 TFLOP/s (float32 outside the tensor cores),
-the published peaks of an H100 SXM.
+the published peaks of an H100 SXM. 67 TFLOP/s counts a fused
+multiply-add as two operations; B1 and B3 round every step to equal
+their plain versions to the bit, so they cannot fuse, and their
+`ceiling_ms` counts the operations at half that rate.
 """
 
 from __future__ import annotations
@@ -56,13 +65,25 @@ F32_FLOPS = 67e12
 B1_FLOPS_PER_SAMPLE = 21
 B1_FLOPS_PER_EPILOGUE = 15
 B2_FLOPS_PER_VOXEL = 26
-# Float operations of kernel B3 per window sample (offset, view and
-# candidate: plane coordinate 4, warp 6, reciprocal and projection 3,
-# clamp, floor and fraction 8) and per channel of it (interpolation 9,
-# centring 1, moments 6), and per candidate epilogue.
-B3_FLOPS_PER_SAMPLE = 21
+# Float operations of B3's function, counted where each depends on its
+# inputs, whatever implements it: per (offset, candidate) the plane
+# coordinate (2 multiplies, 2 adds) and its finiteness test; per (offset,
+# view) the warp's A p~ plus the offset's term (3 adds); per (offset,
+# view, candidate) the projection q = a - b s (3 multiplies, 3
+# subtracts), the reciprocal of q.z and two multiplies, the clamp (4),
+# floor and fraction (4); per channel of it the interpolation (9), the
+# centring (1) and the moments (6); per (view, candidate) the epilogue;
+# per (pixel, view) A p~ (6 multiplies, 6 adds).
+B3_FLOPS_PER_OFFSET_CANDIDATE = 5
+B3_FLOPS_PER_OFFSET_VIEW = 3
+B3_FLOPS_PER_SAMPLE = 17
 B3_FLOPS_PER_CHANNEL = 16
 B3_FLOPS_PER_EPILOGUE = 15
+B3_FLOPS_PER_PIXEL_VIEW = 12
+# The earlier, view-wise count, kept beside it: 21 a sample (offset,
+# view, candidate: the plane coordinate and the warp counted per view),
+# 16 a channel, 15 an epilogue.
+B3_FLOPS_PER_SAMPLE_VIEWWISE = 21
 # Windows (box_hsize, box_vsize; stride 2) of `time_b1_windows`: the
 # default between two that take kernel B1's generic loop.
 WINDOWS = ((9, 9), (11, 11), (13, 13))
@@ -73,6 +94,18 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn):
+    """(fn(), device milliseconds of that one call) (CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_ms(fn, repeats: int, warmup: int = 1) -> float:
@@ -130,7 +163,8 @@ def render(scene_dir: Path) -> None:
     """The synthetic 2K scene and view 0's ground truth, on disk."""
     import numpy as np
     from tsar_mvs_tpu_torch.utils.synthetic import make_scene
-    scene = make_scene(height=H, width=W, num_views=VIEWS, seed=0)
+    scene = make_scene(height=H, width=W, num_views=VIEWS, seed=0,
+                       workers=VIEWS)
     scene.export(scene_dir)
     np.savez_compressed(scene_dir / "gt_view0.npz",
                         depth=scene.depth[0].astype(np.float32),
@@ -445,8 +479,21 @@ def source_bytes_touched(lv: dict, views, s0, sx, sy, parity) -> int:
     return total
 
 
+def b3_flops(px: int, O: int, V: int, C: int, CH: int) -> int:
+    """Float operations of one direct multi-view cost evaluation of C
+    candidates on px pixels (B3_FLOPS_* above)."""
+    return px * (O * C * B3_FLOPS_PER_OFFSET_CANDIDATE
+                 + O * V * B3_FLOPS_PER_OFFSET_VIEW
+                 + O * V * C * (B3_FLOPS_PER_SAMPLE
+                                + B3_FLOPS_PER_CHANNEL * CH)
+                 + V * C * B3_FLOPS_PER_EPILOGUE
+                 + V * B3_FLOPS_PER_PIXEL_VIEW)
+
+
 def b3_bound(lv: dict, views, s0, sx, sy, parity) -> dict:
-    """Least milliseconds for one direct multi-view cost evaluation."""
+    """Least milliseconds for one direct multi-view cost evaluation, and
+    the least a kernel that rounds every step can take (`ceiling_ms`: the
+    operations at half the peak, which counts an FMA as two)."""
     from tsar_mvs_tpu_torch.ops import ncc
     C = s0.shape[0]
     Hc, Wc = s0.shape[-2:]
@@ -457,37 +504,37 @@ def b3_bound(lv: dict, views, s0, sx, sy, parity) -> dict:
     # weights and centred reference channels, 3 + CH statistics, three
     # plane scalars in and cost, ratio, best view out per candidate.
     nbytes = px * (4 * O * (1 + CH) + 4 * (3 + CH) + 24 * C) + src_bytes
-    flops = px * V * C * (O * (B3_FLOPS_PER_SAMPLE
-                               + B3_FLOPS_PER_CHANNEL * CH)
-                          + B3_FLOPS_PER_EPILOGUE)
+    flops = b3_flops(px, O, V, C, CH)
+    flops_viewwise = px * V * C * (O * (B3_FLOPS_PER_SAMPLE_VIEWWISE
+                                        + B3_FLOPS_PER_CHANNEL * CH)
+                                   + B3_FLOPS_PER_EPILOGUE)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return {"bytes": nbytes, "source_bytes": src_bytes, "flops": flops,
-            "bytes_ms": t_bytes, "operations_ms": t_ops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "flops_viewwise": flops_viewwise, "bytes_ms": t_bytes,
+            "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ceiling_ms": max(t_bytes, 2.0 * t_ops)}
 
 
-# (n_best, colour) variants of kernel B3 timed on every level, and on the
-# finest level only.
-B3_VARIANTS = ((1, False),)
-B3_VARIANTS_FINEST = ((3, False), (1, True))
+# (n_best, colour) variants of kernel B3 timed on every level: the direct
+# path of ncc_impl="direct", n_best 3 and -color_processing each launch
+# it at every level.
+B3_VARIANTS = ((1, False), (3, False), (1, True))
 
 
 def time_b3_level(lv: dict, gt: dict) -> list[dict]:
     """Every B3 shape of one level (main_path_fields), per variant:
     evaluation ms (CUDA events around plane_scalars and
     `cuda_direct.multiview_cost_direct`), the kernel's own device ms and
-    launches (profiler), the plain version's ms, the agreement and the
-    bound. No PyTorch call computes the windowed NCC (`grid_sample` does
-    only the bilinear fetch), so library_ms is null."""
+    launches (profiler), the plain version's ms, the agreement, the bound
+    and the rounding ceiling. No PyTorch call computes the windowed NCC
+    (`grid_sample` does only the bilinear fetch), so library_ms is null."""
     import dataclasses
     from tsar_mvs_tpu_torch.ops import cuda_direct, ncc
-    variants = B3_VARIANTS + (B3_VARIANTS_FINEST
-                              if lv["level"] == LEVELS[-1] else ())
     fields = list(main_path_fields(lv, gt))
     out = []
-    for n_best, color in variants:
+    for n_best, color in B3_VARIANTS:
         params = dataclasses.replace(lv["params"], n_best=n_best)
         views, stats_by = direct_inputs(lv, color)
         for label, C, parity, n, d in fields:
@@ -507,12 +554,11 @@ def time_b3_level(lv: dict, gt: dict) -> list[dict]:
             res["kernel_ms"] = None if dt is None else dt["b3"][0] / 1e3
             res["kernel_launches"] = None if dt is None else dt["b3"][1]
 
-            def plain_eval():
-                return cuda_direct.multiview_cost_direct_plain(
-                    views, s0, sx, sy, st, params, parity)
-
-            res["plain_ms"] = time_ms(plain_eval, 1, warmup=0)
-            res.update(agreement(evaluate(), plain_eval()))
+            plain, res["plain_ms"] = timed(
+                lambda: cuda_direct.multiview_cost_direct_plain(
+                    views, s0, sx, sy, st, params, parity))
+            res.update(agreement(evaluate(), plain))
+            del plain
             res.update(b3_bound(lv, views, s0, sx, sy, parity))
             res["library_ms"] = None
             out.append(res)
@@ -683,13 +729,16 @@ def b1_seconds_by_kind(plan: list[dict], each_us: list[float]) -> dict:
 
 def pyramid_runner(scene, params, dev):
     """A function that runs view 0's `run_patchmatch_pyramid` as
-    `process_view` does, from a generator seeded 0."""
+    `process_view` does, from a generator seeded 0; with
+    `color_processing` on the views' `color_from_gray` channels (the
+    values chip_smoke.py's colour export holds)."""
     import torch
     from tsar_mvs_tpu_torch import pipeline
     from tsar_mvs_tpu_torch.models import patchmatch as pm
     order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
     imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
                            device=dev)
+    imgs_color = color_from_gray(imgs) if params.color_processing else None
     planes = pipeline.scene_plane_counts(scene, params, LEVELS,
                                          len(view_ids))
 
@@ -700,14 +749,14 @@ def pyramid_runner(scene, params, dev):
             levels=LEVELS,
             iterations_per_level=pm.iteration_schedule(params, len(LEVELS)),
             depth_min=scene.depth_min, depth_max=scene.depth_max,
-            svol_planes_per_level=planes)
+            svol_planes_per_level=planes, imgs_color=imgs_color)
     return run
 
 
 def patchmatch_split(scene, params, dev) -> dict:
     """Seconds of one `run_patchmatch_pyramid` of view 0 (host clock,
     synchronised, after a warm-up run) and, from a profiled third run,
-    the device seconds inside it of kernel B1, of kernel B2 and of every
+    the device seconds inside it of kernels B1, B2 and B3 and of every
     other kernel and copy, with their launch counts."""
     import torch
     run = pyramid_runner(scene, params, dev)
@@ -729,10 +778,55 @@ def patchmatch_split(scene, params, dev) -> dict:
                          for k, (us, n) in dt.items()}
         busy = sum(us for us, _ in dt.values()) / 1e6
         res["device_busy_s"] = busy
-        res["rest_s"] = min(seconds) - dt["b1"][0] / 1e6 - dt["b2"][0] / 1e6
+        res["rest_s"] = min(seconds) - sum(dt[k][0] for k in
+                                           ("b1", "b2", "b3")) / 1e6
     print("patchmatch split: "
           + json.dumps({k: v for k, v in res.items() if k != "b1_each_us"}),
           flush=True)
+    return res
+
+
+# The direct paths whose PatchMatch `direct_splits` times: AlgorithmParams
+# overrides of each.
+DIRECT_PATHS = {"gray": {"ncc_impl": "direct"},
+                "colour": {"color_processing": True},
+                "n_best 3": {"n_best": 3}}
+
+
+def direct_splits(scene, params, dev) -> dict:
+    """patchmatch_split of view 0 on each direct path (kernel B3)."""
+    import dataclasses
+    import torch
+    out = {}
+    for name, over in DIRECT_PATHS.items():
+        torch.cuda.empty_cache()
+        print(f"direct path: {name}", flush=True)
+        res = patchmatch_split(scene, dataclasses.replace(params, **over),
+                               dev)
+        res.pop("b1_each_us", None)
+        out[name] = res
+    return out
+
+
+def time_b3_all(scene, gt: dict, dev) -> dict:
+    """Every B3 shape and variant, level by level, then the direct paths'
+    PatchMatch splits, with the card line and, where the port reports
+    them, the kernel instances' registers and local bytes."""
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.ops import cuda_direct
+    params = pipeline.default_params_for_scene(scene)
+    b3 = []
+    for li in range(len(LEVELS)):
+        lv = level_inputs(scene, params, li, dev)
+        b3.extend(time_b3_level(lv, gt))
+        del lv
+        torch.cuda.empty_cache()
+    res = {"b3": b3, "direct_paths": direct_splits(scene, params, dev)}
+    if hasattr(cuda_direct, "kernel_attributes"):
+        res["instances"] = cuda_direct.kernel_attributes()
+        res["instances_launched"] = sorted(
+            list(k) for k in cuda_direct.LAUNCHES_BY_INSTANCE)
     return res
 
 
@@ -760,7 +854,7 @@ def time_all(scene, gt: dict, dev) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
-    p.add_argument("command", choices=("render", "time"))
+    p.add_argument("command", choices=("render", "time", "b3"))
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
     ns = p.parse_args(argv)
@@ -780,7 +874,8 @@ def main(argv: list[str] | None = None) -> int:
     scene = pipeline.load_scene(scene_dir)
     with np.load(scene_dir / "gt_view0.npz") as z:
         gt = {"depth": z["depth"], "normal_world": z["normal_world"]}
-    res = time_all(scene, gt, dev)
+    res = (time_all if ns.command == "time" else time_b3_all)(scene, gt,
+                                                              dev)
     res["card"] = card
     if ns.json:
         Path(ns.json).parent.mkdir(parents=True, exist_ok=True)
