@@ -29,8 +29,16 @@ line (the 2K scene renders in one spawned process per view):
 5. the main path: process_view of a 1344x2048, 8-view synthetic scene
    (7 sources, 8 iterations, default AlgorithmParams) with per-stage
    seconds, peak device memory, kernel launch counts (in all and by
-   shape, as the wrappers counted them) and accuracy against the scene's
-   ground truth (acc2_pm and acc2_final must reach 0.95);
+   shape, as the wrappers counted them; kernel B4 once per WMF pass, 10
+   a view) and accuracy against the scene's ground truth (acc2_pm and
+   acc2_final must reach 0.95);
+   (b) kernel B4 (the WMF weighted median plane) against its plain
+   version on the inputs the main path gave its ten passes
+   (kernel_times.recording_wmf_inputs): each pass at full size, one
+   launch a call, timed beside its bound and its plain version, and cut
+   to a 256x384 corner (kernel_times.wmf_crop: the image border,
+   all-invalid pixels at every radius, tied keys, +-inf and NaN
+   disparities, -0.0); every output equal on its int32 view;
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
@@ -105,14 +113,16 @@ line (the 2K scene renders in one spawned process per view):
    (c) bench_scaling.run_count(1): one spawned NCCL rank at the harness's
        defaults (96x128, 2 iterations, 2 scenes).
 
-After phase 5, PatchMatch's seconds split into B1, B2 and the rest
+Every view of phases 5-10 launches B4 once per WMF pass (10 a view,
+80 in the sharded scene), the crosschecks' and phase 5(b)'s launches
+aside. After phase 5, PatchMatch's seconds split into B1, B2 and the rest
 (profiler), and on the direct paths (grayscale, colour, n_best 3) into B3
 and the rest, B3 once per evaluation. At the end one JSON line of
 per-kernel results (the top-level numbers of a kernel
 are those of its level-1 shape, "shapes" holds every timed shape and
-"launches_by_shape" the counted launches at each of its main path: B1's
-and B2's the default view's, B3's the direct view's), the card line, and
-last {"ok": true, "device": {...}}.
+"launches_by_shape" the counted launches at each of its main path: B1's,
+B2's and B4's the default view's, B3's the direct view's), the card line,
+and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -393,6 +403,44 @@ def check_direct(lv: dict, gt: dict) -> float:
     return worst
 
 
+def check_b4(calls: list) -> tuple[list, int]:
+    """Phase 5(b): kernel B4 against its plain version on the main path's
+    WMF inputs `calls` (its ten passes): each pass at full size
+    (kernel_times.time_b4: one launch a call, timed beside its bound and
+    its plain version) and on kernel_times.wmf_crop of it; every output
+    equal on its int32 view. Prints one line for the crops; returns the
+    full-size rows and the largest |delta|."""
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.ops import cuda_wmf, wmf
+    params = AlgorithmParams()
+    if len(calls) != WMF_PASSES:
+        raise SystemExit(f"the main path ran {len(calls)} WMF passes, not "
+                         f"{WMF_PASSES}")
+    crops, ok = [], True
+    for name, call in zip(kt.pass_names(params), calls):
+        args = kt.b4_args(kt.wmf_crop(call))
+        before = cuda_wmf.LAUNCHES
+        mk = wmf.median_plane(*args)
+        launches = cuda_wmf.LAUNCHES - before
+        mp = wmf._median_plane_plain(*args)
+        r = {"pass": name, "radius": call["radius"],
+             "gap": cuda_wmf.gap_of(call["offsets"]), "launches": launches,
+             "all_invalid_pixels": int((mp.num == 0).sum()),
+             **kt.b4_agreement(mk, mp)}
+        ok &= r["max_abs_err"] == 0 and launches == 1 and \
+            r["all_invalid_pixels"] > 0
+        crops.append(r)
+    print(f"B4 vs plain on 256x384 corners (phase 5b): {json.dumps(crops)} "
+          f"-> {'PASS' if ok else 'FAIL'}", flush=True)
+    shapes = kt.time_b4(calls, params)
+    ok &= all(sh["max_abs_err"] == 0 and sh["launches_a_call"] == 1
+              for sh in shapes)
+    if not ok:
+        raise SystemExit("B4 disagrees with its plain version")
+    return shapes, max(sh["max_abs_err"] for sh in crops + shapes)
+
+
 def acc2_for(scene_gt, scene, ref: int, depth, min_sources: int = 1):
     """acc2 of a depth map over the matchable textured pixels of view
     `ref` (finite GT, not weak, seen by at least `min_sources` sources of
@@ -430,9 +478,12 @@ def stage_timer(stages: dict):
 
 
 def _wrappers() -> dict:
-    """The kernel wrappers by key: B1 "ncc", B2 "warp", B3 "direct"."""
+    """The kernel wrappers by key: B1 "ncc", B2 "warp", B3 "direct", B4
+    "wmf"."""
     from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp
-    return {"ncc": cuda_ncc, "warp": cuda_warp, "direct": cuda_direct}
+    from tsar_mvs_tpu_torch.ops import cuda_wmf
+    return {"ncc": cuda_ncc, "warp": cuda_warp, "direct": cuda_direct,
+            "wmf": cuda_wmf}
 
 
 def reset_launches() -> None:
@@ -448,7 +499,7 @@ def read_launches() -> dict:
 def read_launches_by_shape() -> dict:
     """The wrappers' counts by shape: B1 by packed or dense grid and
     candidates of the launch, B2 by image grid and planes, B3 by grid,
-    candidates, channels and n_best."""
+    candidates, channels and n_best, B4 by image grid, radius and gap."""
     w = _wrappers()
     return {"ncc": [{"grid": [hc, wc], "C": c, "launches": n}
                     for (hc, wc, c), n
@@ -459,12 +510,23 @@ def read_launches_by_shape() -> dict:
             "direct": [{"grid": [hc, wc], "C": c, "channels": ch,
                         "n_best": nb, "launches": n}
                        for (hc, wc, c, ch, nb), n
-                       in sorted(w["direct"].LAUNCHES_BY_SHAPE.items())]}
+                       in sorted(w["direct"].LAUNCHES_BY_SHAPE.items())],
+            "wmf": [{"grid": [h, w_], "radius": r, "gap": g, "launches": n}
+                    for (h, w_, r, g), n
+                    in sorted(w["wmf"].LAUNCHES_BY_SHAPE.items())]}
 
 
-def run_main_path(scene_gt, root: Path, dev) -> dict:
+# WMF passes a view at the default AlgorithmParams (wmf_iters +
+# wmf_final_iters): kernel B4's launches a view.
+WMF_PASSES = 4 + 6
+
+
+def run_main_path(scene_gt, root: Path, dev, wmf_calls: list) -> dict:
+    """Phase 5; `wmf_calls` receives the inputs of the view's WMF passes
+    (kernel_times.recording_wmf_inputs)."""
     import numpy as np
     import torch
+    from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch import pipeline
     scene = pipeline.load_scene(root)
@@ -474,8 +536,9 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     timer = stage_timer(stages)
     reset_launches()
     t0 = time.perf_counter()
-    result = pipeline.process_view(scene, 0, AlgorithmParams(), device=dev,
-                                   timer=timer)
+    with kt.recording_wmf_inputs(wmf_calls):
+        result = pipeline.process_view(scene, 0, AlgorithmParams(),
+                                       device=dev, timer=timer)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = read_launches()
@@ -503,9 +566,10 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     if missing or not finite:
         raise SystemExit(f"main path artifacts: missing {missing}, "
                          f"finite depth {finite}")
-    if min(launches["ncc"], launches["warp"]) == 0 or launches["direct"]:
-        raise SystemExit(f"the main path launches B1 and B2 only: "
-                         f"{launches}")
+    if (min(launches["ncc"], launches["warp"]) == 0 or launches["direct"]
+            or launches["wmf"] != WMF_PASSES):
+        raise SystemExit(f"the main path launches B1, B2 and B4 (once per "
+                         f"WMF pass) only: {launches}")
     for kernel, total in launches.items():
         if sum(sh["launches"] for sh in by_shape[kernel]) != total:
             raise SystemExit(f"{kernel}: launches by shape {by_shape} do "
@@ -553,9 +617,10 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
            "recall": fs.recall, "score_s": time.perf_counter() - t0,
            "launches": launches}
     print(f"scene phase: {json.dumps(res)}", flush=True)
-    if min(launches["ncc"], launches["warp"]) == 0:
-        raise SystemExit(f"a kernel was not launched in the scene: "
-                         f"{launches}")
+    if (min(launches["ncc"], launches["warp"]) == 0
+            or launches["wmf"] != (len(scene.names) - 1) * WMF_PASSES):
+        raise SystemExit(f"a kernel was not launched in the scene (B4 once "
+                         f"per WMF pass of views 1-7): {launches}")
     if fs.f1 < 0.94 or min(acc2_final) < 0.95:
         raise SystemExit(f"scene below its limits: F1 {fs.f1}, "
                          f"acc2_final {acc2_final}")
@@ -632,7 +697,9 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
         la = res["launches"]
         used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
                 ) if pm_iterations else set()
-        if any((la[k] > 0) != (k in used) for k in la):
+        used.add("wmf")
+        if any((la[k] > 0) != (k in used) for k in la) or \
+                la["wmf"] != WMF_PASSES:
             raise SystemExit(f"the APD branch launched {la}; expected "
                              f"{sorted(used) or 'none'}")
         if res["acc2_final"] < least:
@@ -679,7 +746,8 @@ def run_direct_view(scene_gt, scene, params, out_dir: Path, dev,
                                             result.depth_pm)["textured"]
         res["acc2_final_seen_by_1"] = acc2_for(scene_gt, scene, 0,
                                                result.depth)["textured"]
-    expect = {"ncc": 0, "warp": 0, "direct": evaluations}
+    expect = {"ncc": 0, "warp": 0, "direct": evaluations,
+              "wmf": WMF_PASSES}
     if res["launches"] != expect:
         raise SystemExit(f"direct view: launches {res['launches']}, "
                          f"expected {expect}")
@@ -761,8 +829,10 @@ def run_odd_phase(dev) -> dict:
                 out_dir=base / f"out_{h}x{w}_{impl}", device=dev)
             torch.cuda.synchronize()
             la = read_launches()
-            used = {"direct"} if impl == "direct" else {"ncc", "warp"}
-            if any((la[k] > 0) != (k in used) for k in la):
+            used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
+                    ) | {"wmf"}
+            if any((la[k] > 0) != (k in used) for k in la) or \
+                    la["wmf"] != WMF_PASSES:
                 raise SystemExit(f"{h}x{w} {impl}: launches {la}")
             runs[f"{h}x{w} {impl}"] = {
                 "seconds": time.perf_counter() - t0, "render_s": render_s,
@@ -874,7 +944,8 @@ def run_sharded_phase(scene_gt, root: Path, dev, evaluations: int,
            "sequential_points": sequential["points"],
            "sequential_f1": sequential["f1"], "artifacts_written": written}
     print(f"sharded scene (phase 9a): {json.dumps(res)}", flush=True)
-    expect = {"ncc": V * evaluations, "warp": V * builds, "direct": 0}
+    expect = {"ncc": V * evaluations, "warp": V * builds, "direct": 0,
+              "wmf": V * WMF_PASSES}
     if launches != expect:
         raise SystemExit(f"sharded scene: launches {launches}, expected "
                          f"{expect}")
@@ -1047,7 +1118,7 @@ def check_batch_sites(scene, scene_gt, dev, cut: int, label: str) -> dict:
                         mp = cuda_direct.multiview_cost_direct_plain(
                             sampler, s0, sx, sy, st, params_i, parity)
                         agree, good = b3_agreement(mk, mp, inv_p, params_i)
-                    good &= launched == {"ncc": 0, "warp": 0, "direct": 0,
+                    good &= launched == {**{k: 0 for k in launched},
                                          key: 1}
                     worst[key] = max(worst[key], agree["max"])
                     case["evaluations"].append(
@@ -1136,7 +1207,8 @@ def run_sharded_ranks_phase(dev) -> dict:
     ranks_s = time.perf_counter() - t0
     infos = [json.loads((out / f"rank{k}.json").read_text())
              for k in range(2)]
-    used = {"svolume": {"ncc", "warp"}, "direct": {"direct"}}
+    used = {"svolume": {"ncc", "warp", "wmf"},
+            "direct": {"direct", "wmf"}}
     res, ok = {"ranks": infos, "ranks_s": ranks_s,
                "site_worst": site_worst}, True
     for impl in SHARDED_IMPLS:
@@ -1191,7 +1263,7 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
                     after_views=lambda: launches.update(read_launches()))
     print(f"bench (phase 10a): {json.dumps(res)}", flush=True)
     expect = {"ncc": views * evaluations, "warp": views * builds,
-              "direct": 0}
+              "direct": 0, "wmf": views * WMF_PASSES}
     bench_s = time.perf_counter() - t_phase
     info = {"seconds": bench_s, "views": views, "launches": launches,
             "expected": expect, "acc2_weak_final": res["acc2_weak_final"],
@@ -1202,14 +1274,16 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
                          f"(one per evaluation and volume in each of "
                          f"{views} views)")
     if (res["acc2_pm"] < 0.95 or res["acc2_final"] < 0.95
-            or not res["cuda_crosscheck"].startswith("ok")):
+            or not res["cuda_crosscheck"].startswith("ok")
+            or "B4 0" not in res["cuda_crosscheck"]):
         raise SystemExit(f"bench below its limits: {res}")
     # The crosscheck a TSAR_NCC_IMPL=direct bench makes: B3 too, exact.
     check = bench.cuda_crosscheck(
         scene_gt, bench.bench_params(scene_gt, 8, "direct", False), dev)
     print(f"bench crosscheck on the direct sampler (phase 10a): {check}",
           flush=True)
-    if not check.startswith("ok") or "B3 0" not in check:
+    if not check.startswith("ok") or "B3 0" not in check or \
+            "B4 0" not in check:
         raise SystemExit(f"bench crosscheck on the direct sampler: {check}")
 
     t = time.perf_counter()
@@ -1226,9 +1300,10 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
     if any("error" in r or r["acc2_pm"] < 0.95 for r in ab):
         raise SystemExit(f"sampler A/B below its limits: {ab}")
     if ab_launches != {
-            "direct": {"ncc": 0, "warp": 0, "direct": runs * evaluations},
+            "direct": {"ncc": 0, "warp": 0, "direct": runs * evaluations,
+                       "wmf": 0},
             "svolume": {"ncc": runs * evaluations, "warp": runs * builds,
-                        "direct": 0}}:
+                        "direct": 0, "wmf": 0}}:
         raise SystemExit(f"sampler A/B launches {ab_launches}")
 
     t = time.perf_counter()
@@ -1324,14 +1399,18 @@ def main() -> int:
                 or sh["best_view_mismatches"]):
             raise SystemExit(f"B3 disagrees with its plain version at "
                              f"{sh}")
-    main_res = run_main_path(scene_gt, root, dev)
+    wmf_calls: list = []
+    main_res = run_main_path(scene_gt, root, dev, wmf_calls)
+    b4_shapes, b4_worst = check_b4(wmf_calls)
+    del wmf_calls
+    torch.cuda.empty_cache()
     plan = kt.launch_plan(scene, params)
     evaluations = sum(p["propagation"] + p["refinement"] + p["init"]
                       for p in plan)
     builds = sum(p["builds"] for p in plan)
     print(f"launch plan: {json.dumps(plan)}", flush=True)
     if main_res["launches"] != {"ncc": evaluations, "warp": builds,
-                                "direct": 0}:
+                                "direct": 0, "wmf": WMF_PASSES}:
         raise SystemExit(f"launches {main_res['launches']} are not one per "
                          f"cost evaluation ({evaluations}) and one per "
                          f"volume ({builds})")
@@ -1372,6 +1451,9 @@ def main() -> int:
     head_b1 = next(sh for sh in b1_shapes if sh["level"] == 1
                    and sh["C"] == 1 and sh["field"] == "smooth")
     head_b2 = next(sh for sh in b2_shapes if sh["level"] == 1)
+    # B4's passes take the same time within a few percent; the first is
+    # the widest marking pass.
+    head_b4 = {**b4_shapes[0], "library_ms": None}
     head_b3 = next(sh for sh in b3_shapes if sh["level"] == 1
                    and sh["C"] == 1 and sh["field"] == "smooth"
                    and sh["n_best"] == 1 and sh["channels"] == 1)
@@ -1408,6 +1490,14 @@ def main() -> int:
          "instances_launched": sorted(
              list(k) for k in cuda_direct.LAUNCHES_BY_INSTANCE),
          "build_seconds": _build.BUILD_SECONDS},
+        {"name": "wmf_median", "route": "cuda",
+         "source": "tsar_mvs_tpu_torch/csrc/wmf.cu",
+         "replaces": "tsar_mvs_tpu/ops/wmf.py:76 (XLA; _gather_samples "
+                     ":136, _median_plane :159)",
+         "launches": main_res["launches"]["wmf"],
+         "max_abs_err": b4_worst,
+         **{k: head_b4[k] for k in keys}, "shapes": b4_shapes,
+         "launches_by_shape": main_res["launches_by_shape"]["wmf"]},
     ]
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

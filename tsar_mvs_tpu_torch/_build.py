@@ -45,6 +45,9 @@ SIGNATURES = {
         ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _I,
         _P, _P, _P, _P],
     "tsar_direct_instances": [ctypes.POINTER(_I), _I],
+    "tsar_wmf_median": [_P, _P, _P, _P, _I, _I, ctypes.POINTER(_I),
+                        ctypes.POINTER(_F), _I, _F, _P, _P, _P, _P, _P, _P,
+                        _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -146,7 +149,8 @@ def kernel_resources() -> list[str]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel"
-                          r"|direct_multiview_kernel)(\w*)", m.group(1))
+                          r"|direct_multiview_kernel|wmf_median_kernel)"
+                          r"(\w*)", m.group(1))
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \
                 else m.group(1)

@@ -16,7 +16,8 @@ the fastest of REPEATS views; prints ONE JSON line with `bench.py`'s keys:
 
 `stages` holds each stage's seconds between device synchronisations.
 `cuda_crosscheck` holds kernels B1 and B2 (and B3 when the sampler is the
-direct one) against their plain versions at one full-resolution shape;
+direct one) against their plain versions at one full-resolution shape,
+and kernel B4 against its plain version on one full-size WMF pass;
 when it fails the line says "FAILED: ..." and the run exits 1.
 
 Environment: TSAR_BENCH_H/W/VIEWS/ITERS/REPEATS (1344/2048/8/8/2),
@@ -267,9 +268,11 @@ def cuda_crosscheck(scene, params: AlgorithmParams, dev) -> str:
     plane field (the ground truth perturbed) and a random one. B2 builds
     every source's volume (kernel_times.b2_agreement), B1 evaluates both
     fields on those volumes and B3 on the packed sources (_agrees; B3
-    to the bit).
-    Returns "ok: max|delta| B1 x B2 y [B3 z]" or "FAILED: ..." with the
-    same numbers; "skipped (cpu)" off the card."""
+    to the bit). Kernel B4 computes the first WMF pass's median plane of
+    kernel_times.wmf_truth_call, equal to the bit on every output
+    (kernel_times.b4_agreement).
+    Returns "ok: max|delta| B1 x B2 y [B3 z] B4 w" or "FAILED: ..." with
+    the same numbers; "skipped (cpu)" off the card."""
     from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch.ops import checkerboard as cb
     from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp, ncc
@@ -323,6 +326,13 @@ def cuda_crosscheck(scene, params: AlgorithmParams, dev) -> str:
             ok &= _agrees(a, exact=True)
             worst["B3"] = max(worst["B3"], a["max_abs_err"])
     del vol, lv
+    # B4 on the view's widest marking pass, inputs from the ground truth.
+    args = kt.b4_args(kt.wmf_truth_call(
+        scene, cams, params, torch.Generator(device=dev).manual_seed(9)))
+    b4 = kt.b4_agreement(wmf.median_plane(*args),
+                         wmf._median_plane_plain(*args))
+    ok &= b4["max_abs_err"] == 0
+    worst["B4"] = b4["max_abs_err"]
     torch.cuda.empty_cache()
     return (("ok: " if ok else "FAILED: ") + "max|delta| "
             + " ".join(f"{k} {v:.3g}" for k, v in worst.items()))

@@ -7,6 +7,8 @@ the same grids and candidate counts as B1's.
     python -m tsar_mvs_tpu_torch.kernel_times render <scene_dir>
     python -m tsar_mvs_tpu_torch.kernel_times time <scene_dir> [--json OUT]
     python -m tsar_mvs_tpu_torch.kernel_times b3 <scene_dir> [--json OUT]
+    python -m tsar_mvs_tpu_torch.kernel_times b4 <scene_dir> [--json OUT]
+        [--before <older checkout>/tsar_mvs_tpu_torch/ops/wmf.py]
 
 `render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
 pair.txt) and view 0's ground truth (`gt_view0.npz`) once (one spawned
@@ -16,6 +18,11 @@ device. `b3` times kernel B3 alone: every shape and variant of
 sampler in grayscale, colour and n_best 3; it uses only the functions of
 `ops/cuda_direct.py` that every version of the port has, so a copy of
 this file in an older checkout times that checkout's kernel.
+`b4` times kernel B4 (the weighted median plane) at each of the ten WMF
+passes of view 0, on the inputs `process_view` gives them
+(`recording_wmf_inputs`), beside its bound, its plain version and, with
+`--before`, that file's row-chunked `_median_plane_chunked` (the plain
+PyTorch WMF the port ran before B4), loaded from the older checkout.
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -48,6 +55,7 @@ their plain versions to the bit, so they cannot fuse, and their
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -84,6 +92,15 @@ B3_FLOPS_PER_PIXEL_VIEW = 12
 # view, candidate: the plane coordinate and the warp counted per view),
 # 16 a channel, 15 an epilogue.
 B3_FLOPS_PER_SAMPLE_VIEWWISE = 21
+# Float operations of B4's function, per pixel and offset: the weight
+# (subtract, multiply, exp, multiply; exp counted as one), its add to the
+# total, one masked add a descent step for each of the four medians (32
+# steps) and one to the donor's base; per pixel and index step one masked
+# add per offset and the add of the base. Bytes per pixel: gray, disp,
+# the normal (f32) and reliable (bool) read, three medians and the donor
+# disparity (f32), the donor index and the count (int64) written.
+B4_FLOPS_PER_OFFSET = 4 + 1 + 4 * 32 + 1
+B4_BYTES_PER_PIXEL = 4 + 4 + 12 + 1 + 12 + 4 + 8 + 8
 # Windows (box_hsize, box_vsize; stride 2) of `time_b1_windows`: the
 # default between two that take kernel B1's generic loop.
 WINDOWS = ((9, 9), (11, 11), (13, 13))
@@ -125,7 +142,8 @@ def time_ms(fn, repeats: int, warmup: int = 1) -> float:
 
 def device_times(fn) -> dict | None:
     """Device microseconds and launch counts of one call of `fn`, by
-    kernel: {"b1": [us, n], "b2": [us, n], "b3": [us, n], "other": [us, n],
+    kernel: {"b1": [us, n], "b2": [us, n], "b3": [us, n], "b4": [us, n],
+    "other": [us, n],
     "b1_each_us":
     B1's launches one by one in launch order} from torch.profiler, or None
     when the profiler reports no device activity (it sometimes drops a
@@ -140,14 +158,15 @@ def device_times(fn) -> dict | None:
             fn()
             torch.cuda.synchronize()
         groups = {"b1": [0.0, 0], "b2": [0.0, 0], "b3": [0.0, 0],
-                  "other": [0.0, 0]}
+                  "b4": [0.0, 0], "other": [0.0, 0]}
         b1_each = []
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
             key = ("b1" if "svol_ncc" in e.name
                    else "b2" if "warp_build" in e.name
-                   else "b3" if "direct_multiview" in e.name else "other")
+                   else "b3" if "direct_multiview" in e.name
+                   else "b4" if "wmf_median" in e.name else "other")
             groups[key][0] += e.time_range.elapsed_us()
             groups[key][1] += 1
             if key == "b1":
@@ -830,6 +849,210 @@ def time_b3_all(scene, gt: dict, dev) -> dict:
     return res
 
 
+def b4_flops(px: int, O: int) -> int:
+    """Float operations of one B4 pass over `px` pixels with O offsets."""
+    nbits = max(1, (O - 1).bit_length())
+    return px * (O * B4_FLOPS_PER_OFFSET + nbits * (O + 1))
+
+
+def b4_bound(H: int, W: int, O: int) -> dict:
+    """B4's bound at an H x W pass with O offsets: the larger of its bytes
+    over 3.35 TB/s and its operations (b4_flops) over 67 TFLOP/s."""
+    nbytes = B4_BYTES_PER_PIXEL * H * W
+    flops = b4_flops(H * W, O)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
+            "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+@contextlib.contextmanager
+def recording_wmf_inputs(calls: list):
+    """While open, every `wmf.median_plane` call (each WMF pass) appends
+    its inputs to `calls` (tensors cloned) and then runs as before."""
+    from tsar_mvs_tpu_torch.ops import wmf
+    inner = wmf.median_plane
+
+    def record(gray, disp, normal, reliable, offsets, spatial_div,
+               sigma_spatial, sigma_color, radius, chunk_rows=256):
+        calls.append({"gray": gray.clone(), "disp": disp.clone(),
+                      "normal": normal.clone(),
+                      "reliable": reliable.clone(), "offsets": offsets,
+                      "spatial_div": spatial_div,
+                      "sigma_spatial": sigma_spatial,
+                      "sigma_color": sigma_color, "radius": radius})
+        return inner(gray, disp, normal, reliable, offsets, spatial_div,
+                     sigma_spatial, sigma_color, radius, chunk_rows)
+
+    wmf.median_plane = record
+    try:
+        yield calls
+    finally:
+        wmf.median_plane = inner
+
+
+def b4_args(call: dict) -> tuple:
+    """`wmf.median_plane`'s arguments (without chunk_rows) of a call."""
+    return (call["gray"], call["disp"], call["normal"], call["reliable"],
+            call["offsets"], call["spatial_div"], call["sigma_spatial"],
+            call["sigma_color"], call["radius"])
+
+
+def pass_names(params) -> list[str]:
+    """"mark i" and "fill i" of a view's WMF passes, in their order."""
+    return ([f"mark {i}" for i in range(params.wmf_iters)]
+            + [f"fill {i}" for i in range(params.wmf_final_iters)])
+
+
+def b4_agreement(mk, mp) -> dict:
+    """Largest |delta| of every output of two median planes, on their
+    int32 views (int64 outputs as pairs of int32; a NaN's bits count), and
+    their largest as "max_abs_err"."""
+    import torch
+    out = {}
+    for name, a, b in zip(mp._fields, mk, mp):
+        ai = a.contiguous().view(torch.int32).to(torch.int64)
+        bi = b.contiguous().view(torch.int32).to(torch.int64)
+        out[name] = int((ai - bi).abs().max())
+    out["max_abs_err"] = max(out.values())
+    return out
+
+
+def wmf_crop(call: dict, rows: int = 256, cols: int = 384) -> dict:
+    """A pass's inputs cut to their top-left rows x cols (two sides on the
+    image border) with: an unreliable 208 x 208 block in the corner, so
+    the pixels near (40, 40) have no valid sample at any pass's radius
+    (up to 160); disparities rounded to 1/4 and normals to 1/8 in the
+    bottom-right quarter (tied keys); and, spread over the rest, +inf,
+    -inf and NaN disparities and -0.0 normal components."""
+    import torch
+    c = dict(call)
+    g, d, n, r = (call[k][:rows, :cols].clone()
+                  for k in ("gray", "disp", "normal", "reliable"))
+    r[:208, :208] = False
+    q = (slice(rows // 2, None), slice(cols // 2, None))
+    d[q] = torch.round(d[q] * 4.0) / 4.0
+    n[q] = torch.round(n[q] * 8.0) / 8.0
+    flat = d.view(-1)
+    for k, v in enumerate((float("inf"), float("-inf"), float("nan"))):
+        flat[k::97] = v
+    n.view(-1)[3::89] = -0.0
+    c.update(gray=g.contiguous(), disp=d, normal=n, reliable=r)
+    return c
+
+
+def wmf_truth_call(scene_gt, cams, params, gen, kind: str = "mark",
+                   iteration: int = 0) -> dict:
+    """One WMF pass's inputs for view 0 of a utils.synthetic scene, made
+    from its ground truth on `gen`'s device: the view's gray image, the
+    disparity of the true depth with 1% noise and 10% of the pixels
+    redrawn within +-30%, the true normals (view frame) with noise, 70% of
+    the pixels reliable; pass `kind` `iteration` of `params`."""
+    import torch
+    import torch.nn.functional as F
+    from tsar_mvs_tpu_torch import geometry as geo
+    from tsar_mvs_tpu_torch.ops import wmf
+    dev = gen.device
+    gt = torch.as_tensor(scene_gt.depth[0], device=dev)
+    gt = torch.where(torch.isfinite(gt), gt, float(scene_gt.depth_max))
+    H, W = gt.shape
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    depth = gt * (1.0 + 0.01 * torch.randn((H, W), generator=gen,
+                                            device=dev))
+    depth = torch.where(uniform(H, W) < 0.1,
+                        gt * (0.7 + 0.6 * uniform(H, W)), depth)
+    n = torch.as_tensor(scene_gt.normal_cam[0], dtype=torch.float32,
+                        device=dev)
+    n = F.normalize(n + 0.05 * torch.randn((H, W, 3), generator=gen,
+                                           device=dev), dim=-1)
+    radius, gap, div = wmf.pass_schedule(kind, iteration)
+    return {"gray": torch.as_tensor(scene_gt.images[0], dtype=torch.float32,
+                                    device=dev),
+            "disp": geo.disparity_depth(cams.f, cams.baseline,
+                                        depth).to(torch.float32),
+            "normal": n.contiguous(), "reliable": uniform(H, W) < 0.7,
+            "offsets": wmf.sample_offsets(radius, gap), "spatial_div": div,
+            "sigma_spatial": params.wmf_sigma_spatial,
+            "sigma_color": params.wmf_sigma_color, "radius": radius}
+
+
+def time_b4(calls: list, params, before=None) -> list[dict]:
+    """Kernel B4 at each captured pass: its ms (CUDA events, a mean of 10
+    after a warm-up), launches in one call, the plain version's ms (one
+    call), agreement with it (b4_agreement), the bound and, with `before`
+    (a module with `_median_plane_chunked`), that version's ms."""
+    from tsar_mvs_tpu_torch.ops import cuda_wmf, wmf
+    out = []
+    for name, call in zip(pass_names(params), calls):
+        args = b4_args(call)
+        H, W = call["gray"].shape
+        O = len(call["offsets"])
+        n0 = cuda_wmf.LAUNCHES
+        mk = wmf.median_plane(*args)
+        launches = cuda_wmf.LAUNCHES - n0
+        mp = wmf._median_plane_plain(*args)
+        res = {"pass": name, "grid": [H, W], "radius": call["radius"],
+               "gap": cuda_wmf.gap_of(call["offsets"]), "O": O,
+               "launches_a_call": launches, **b4_agreement(mk, mp)}
+        del mk, mp
+        res["ms"] = time_ms(lambda: wmf.median_plane(*args), 10)
+        res["plain_ms"] = time_ms(lambda: wmf._median_plane_plain(*args), 1,
+                                  warmup=0)
+        if before is not None:
+            res["before_ms"] = time_ms(
+                lambda: before._median_plane_chunked(*args, 256), 1,
+                warmup=0)
+        res.update(b4_bound(H, W, O))
+        print(f"B4 pass: {json.dumps(res)}", flush=True)
+        out.append(res)
+    return out
+
+
+def wmf_view_inputs(scene, params, dev) -> list:
+    """The inputs of view 0's WMF passes as `process_view` with `params`
+    gives them (one run, its artifacts in a temporary directory)."""
+    import tempfile
+    from tsar_mvs_tpu_torch import pipeline
+    calls: list = []
+    with tempfile.TemporaryDirectory() as tmp, recording_wmf_inputs(calls):
+        pipeline.process_view(scene, 0, params, out_dir=Path(tmp),
+                              device=dev)
+    return calls
+
+
+def load_wmf_before(path: str):
+    """An older checkout's `ops/wmf.py` as a module of its own (its
+    imports resolve to this package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("wmf_before", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_b4_all(scene, dev, before: str | None) -> dict:
+    """B4 at the ten passes of view 0 (time_b4), its registers and
+    spills, and launches a view."""
+    import torch
+    from tsar_mvs_tpu_torch import _build
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.ops import cuda_wmf
+    params = AlgorithmParams()
+    cuda_wmf.LAUNCHES = 0
+    calls = wmf_view_inputs(scene, params, dev)
+    torch.cuda.synchronize()
+    res = {"launches_a_view": cuda_wmf.LAUNCHES,
+           "passes": time_b4(calls, params, before and load_wmf_before(
+               before)),
+           "resources": [r for r in _build.kernel_resources()
+                         if r.startswith("wmf")]}
+    return res
+
+
 def time_all(scene, gt: dict, dev) -> dict:
     """Every B1, B2 and B3 shape, level by level (one level's volumes live
     at a time), B1's windows on the last level, then the PatchMatch
@@ -854,9 +1077,11 @@ def time_all(scene, gt: dict, dev) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
-    p.add_argument("command", choices=("render", "time", "b3"))
+    p.add_argument("command", choices=("render", "time", "b3", "b4"))
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
+    p.add_argument("--before", default=None,
+                   help="b4: an older checkout's ops/wmf.py to time beside")
     ns = p.parse_args(argv)
     scene_dir = Path(ns.scene_dir)
     if ns.command == "render":
@@ -874,8 +1099,11 @@ def main(argv: list[str] | None = None) -> int:
     scene = pipeline.load_scene(scene_dir)
     with np.load(scene_dir / "gt_view0.npz") as z:
         gt = {"depth": z["depth"], "normal_world": z["normal_world"]}
-    res = (time_all if ns.command == "time" else time_b3_all)(scene, gt,
-                                                              dev)
+    if ns.command == "b4":
+        res = time_b4_all(scene, dev, ns.before)
+    else:
+        res = (time_all if ns.command == "time" else time_b3_all)(scene, gt,
+                                                                  dev)
     res["card"] = card
     if ns.json:
         Path(ns.json).parent.mkdir(parents=True, exist_ok=True)

@@ -9,10 +9,14 @@
   textured pixels with the weighted median plane when at least 32/2^i
   reliable samples exist.
 
-The weighted median is a radix bit descent over an order-preserving
-integer image of the keys, with the donor sample recovered by a second
-descent over the tied keys. Keys are int64 holding the uint32 image
-(torch's uint32 lacks most ops); the order is the same.
+Each pass computes its median plane with ``median_plane``: kernel B4
+(``ops/cuda_wmf.py``, ``csrc/wmf.cu``) on CUDA tensors, the plain version
+``_median_plane_plain`` on CPU tensors. The weighted median is a radix
+bit descent over an order-preserving integer image of the keys, with the
+donor sample recovered by a second descent over the tied keys. Keys are
+int64 holding the uint32 image (torch's uint32 lacks most ops); the
+order is the same. Every weight sum runs in the kernel's order
+(``fixed_sum``), so the plain version equals the kernel to the bit.
 """
 
 from __future__ import annotations
@@ -24,16 +28,30 @@ import torch
 
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch.ops import cuda_wmf
 from tsar_mvs_tpu_torch.ops.checkerboard import shift_const
 
 _SIGN = 0x80000000
 _MASK = 0xFFFFFFFF
+# The ordered key of +inf: the key of an invalid sample.
+KEY_INF = 0xFF800000
+# Lanes a pixel in kernel B4: the weight sums' order (`fixed_sum`).
+LANES = cuda_wmf.LANES
 
 
 def sample_offsets(radius: int, gap: int) -> list[tuple[int, int]]:
     """(dx, dy) grid: i, j in [-radius, radius] step gap."""
     rng = list(range(-radius, radius + 1, gap))
     return [(i, j) for i in rng for j in rng]
+
+
+def pass_schedule(kind: str, iteration: int) -> tuple[int, int, float]:
+    """(radius, gap, spatial_div) of marking pass ("mark") or fill pass
+    ("fill") `iteration`."""
+    po = 2 ** iteration
+    if kind == "mark":
+        return 80 // po, 16 // po, float(2 ** (3 - iteration))
+    return 5 * po, po, float(po)
 
 
 class _MedianResult(NamedTuple):
@@ -62,74 +80,135 @@ def ordered_key_to_float(u: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32)
 
 
-def _weighted_median(key: torch.Tensor, weight: torch.Tensor,
-                     with_index: bool = False):
-    """Weighted median along dim 0: the smallest key whose cumulative
-    weight (in stably sorted order) reaches half the total. Invalid
-    samples carry weight 0 and key +inf. With `with_index`, also the
-    smallest sample index at that key whose running weight reaches half
-    (stable-sort tie break)."""
-    u = float_to_ordered_key(key)
-    half = torch.sum(weight, dim=0) * 0.5
-    med_u = torch.zeros_like(u[0])
+def lane_layout(x: torch.Tensor, fill) -> torch.Tensor:
+    """(O, ...) -> (J, LANES, ...): sample o at [o // LANES, o % LANES],
+    the tail padded with `fill` (J = ceil(O / LANES)). Lane s of a pixel
+    holds the samples s, s + LANES, s + 2 LANES, ... as in the kernel."""
+    O = x.shape[0]
+    J = -(-O // LANES)
+    if J * LANES != O:
+        pad = torch.full((J * LANES - O,) + tuple(x.shape[1:]), fill,
+                         dtype=x.dtype, device=x.device)
+        x = torch.cat([x, pad])
+    return x.reshape((J, LANES) + tuple(x.shape[1:]))
+
+
+def fixed_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the two leading axes (J, LANES) of `a` in the kernel's
+    order: each lane adds its samples in position order, then the lanes
+    combine in a halving tree (lane s plus lane s + n/2), as the kernel's
+    __shfl_xor_sync butterfly does. Every step is one elementwise add, so
+    the result depends on neither the device nor the library."""
+    p = a[0]
+    for j in range(1, a.shape[0]):
+        p = p + a[j]
+    n = p.shape[0]
+    while n > 1:
+        n //= 2
+        p = p[:n] + p[n:]
+    return p[0]
+
+
+def _median_keys(u: torch.Tensor, w: torch.Tensor,
+                 half: torch.Tensor) -> torch.Tensor:
+    """The 32-step radix descent over ordered keys u (J, LANES, M, *P)
+    with weights w (J, LANES, 1, *P) shared by the M medians: the
+    smallest key whose weight at or below it reaches `half` (*P), each
+    step's weight below `mid` a `fixed_sum`. Returns (M, *P)."""
+    med = torch.zeros(u.shape[2:], dtype=torch.int64, device=u.device)
     for i in range(32):
-        mid = med_u | (1 << (31 - i))
-        below = torch.sum(torch.where(u < mid[None], weight, 0.0), dim=0)
-        med_u = torch.where(below < half, mid, med_u)
-    med = ordered_key_to_float(med_u)
-    if not with_index:
-        return med
-    w_at = torch.where(u == med_u[None], weight, 0.0)
-    base = torch.sum(torch.where(u < med_u[None], weight, 0.0), dim=0)
-    O = key.shape[0]
-    oidx = torch.arange(O, device=key.device).view(
-        (O,) + (1,) * (key.dim() - 1))
+        mid = med | (1 << (31 - i))
+        below = fixed_sum(torch.where(u < mid, w, 0.0))
+        med = torch.where(below < half, mid, med)
+    return med
+
+
+def _donor_index(u: torch.Tensor, w: torch.Tensor, med_u: torch.Tensor,
+                 half: torch.Tensor, O: int) -> torch.Tensor:
+    """The smallest sample index at the median key `med_u` whose running
+    weight reaches `half` (the stable-sort tie break), by a descent over
+    the index bits; u, w (J, LANES, *P). Clamped to O - 1."""
+    J = u.shape[0]
+    w_at = torch.where(u == med_u, w, 0.0)
+    base = fixed_sum(torch.where(u < med_u, w, 0.0))
+    oidx = torch.arange(J * LANES, device=u.device).reshape(
+        (J, LANES) + (1,) * (u.dim() - 2))
     nbits = max(1, (O - 1).bit_length())
     med_i = torch.zeros_like(med_u)
     for i in range(nbits):
         mid = med_i | (1 << (nbits - 1 - i))
-        below = base + torch.sum(torch.where(oidx < mid[None], w_at, 0.0),
-                                 dim=0)
+        below = base + fixed_sum(torch.where(oidx < mid, w_at, 0.0))
         med_i = torch.where(below < half, mid, med_i)
-    return med, torch.clamp(med_i, max=O - 1)
+    return torch.clamp(med_i, max=O - 1)
+
+
+def _weighted_medians(key: torch.Tensor, weight: torch.Tensor):
+    """Weighted medians along dim 0 of key (O, M, *P), the M medians
+    sharing weight (O, *P): each the smallest key whose cumulative weight
+    (in stably sorted order) reaches half the total, and for the first
+    the smallest sample index at that key whose running weight reaches
+    half (stable-sort tie break). Invalid samples carry weight 0 and key
+    +inf. Every weight sum is a `fixed_sum`. Returns ((M, *P) medians,
+    (*P) donor index)."""
+    u = lane_layout(float_to_ordered_key(key), KEY_INF)
+    w = lane_layout(weight, 0.0)
+    half = fixed_sum(w) * 0.5
+    med_u = _median_keys(u, w[:, :, None], half)
+    return ordered_key_to_float(med_u), _donor_index(
+        u[:, :, 0], w, med_u[0], half, key.shape[0])
+
+
+def _weighted_median(key: torch.Tensor, weight: torch.Tensor,
+                     with_index: bool = False):
+    """The weighted median along dim 0 of key (O, *P) with weight (O, *P)
+    and, with `with_index`, its donor index (`_weighted_medians`)."""
+    med, donor = _weighted_medians(key[:, None], weight)
+    return (med[0], donor) if with_index else med[0]
+
+
+def spatial_factors(offsets, spatial_div: float,
+                    sigma_spatial: float) -> list[float]:
+    """exp(-(|offset| / spatial_div) / sigma_spatial^2) per offset, in
+    double: the plain version multiplies a float32 tensor by it (torch
+    rounds it to float32 first), the kernel takes it as a float32."""
+    inv_ss = 1.0 / (sigma_spatial * sigma_spatial)
+    return [math.exp(-(math.sqrt(dx * dx + dy * dy) / spatial_div) * inv_ss)
+            for dx, dy in offsets]
 
 
 def _median_plane(gray, disp, normal, reliable, offsets, spatial_div: float,
                   sigma_spatial: float, sigma_color: float) -> _MedianResult:
-    inv_ss = 1.0 / (sigma_spatial * sigma_spatial)
+    """Plain median plane of a block of rows: shifted copies of the five
+    fields, the bilateral weights, then the four medians (disparity, nx,
+    ny, nz) in one descent and the disparity's donor index."""
     inv_sc = 1.0 / (sigma_color * sigma_color)
     rel_f = reliable.to(torch.float32)
-    ws, ds, nxs, nys, nzs = [], [], [], [], []
-    for (dx, dy) in offsets:
+    ws, keys = [], []
+    for (dx, dy), sf in zip(offsets, spatial_factors(offsets, spatial_div,
+                                                      sigma_spatial)):
         ok = shift_const(rel_f, dy, dx, 0.0) > 0.5
         g = shift_const(gray, dy, dx, 0.0)
-        spatial = math.sqrt(dx * dx + dy * dy) / spatial_div
-        w = math.exp(-spatial * inv_ss) * torch.exp(
-            -torch.abs(g - gray) * inv_sc)
+        w = sf * torch.exp(-torch.abs(g - gray) * inv_sc)
         ws.append(torch.where(ok, w, 0.0))
-        ds.append(shift_const(disp, dy, dx, float("inf")))
-        nxs.append(shift_const(normal[..., 0], dy, dx, float("inf")))
-        nys.append(shift_const(normal[..., 1], dy, dx, float("inf")))
-        nzs.append(shift_const(normal[..., 2], dy, dx, float("inf")))
+        keys.append(torch.stack(
+            [shift_const(disp, dy, dx, float("inf"))]
+            + [shift_const(normal[..., c], dy, dx, float("inf"))
+               for c in range(3)]))
     w = torch.stack(ws)
     valid = w > 0.0
-    num = valid.sum(dim=0)
-    inf = float("inf")
-    med_d, donor = _weighted_median(
-        torch.where(valid, torch.stack(ds), inf), w, with_index=True)
-    return _MedianResult(
-        med_nx=_weighted_median(torch.where(valid, torch.stack(nxs), inf), w),
-        med_ny=_weighted_median(torch.where(valid, torch.stack(nys), inf), w),
-        med_nz=_weighted_median(torch.where(valid, torch.stack(nzs), inf), w),
-        donor_idx=donor, donor_disp=med_d, num=num)
+    med, donor = _weighted_medians(
+        torch.where(valid[:, None], torch.stack(keys), float("inf")), w)
+    return _MedianResult(med_nx=med[1], med_ny=med[2], med_nz=med[3],
+                         donor_idx=donor, donor_disp=med[0],
+                         num=valid.sum(dim=0))
 
 
-def _median_plane_chunked(gray, disp, normal, reliable, offsets,
-                          spatial_div, sigma_spatial, sigma_color,
-                          radius: int, chunk_rows: int) -> _MedianResult:
-    """Row-chunked median: bounds the (O, rows, W) sample stacks. Chunks
-    carry `radius` halo rows padded with the out-of-bounds fill values, so
-    the result equals the unchunked one."""
+def _median_plane_plain(gray, disp, normal, reliable, offsets,
+                        spatial_div, sigma_spatial, sigma_color,
+                        radius: int, chunk_rows: int = 256) -> _MedianResult:
+    """The plain version of kernel B4, row-chunked: bounds the (O, rows,
+    W) sample stacks. Chunks carry `radius` halo rows padded with the
+    out-of-bounds fill values, so the result equals the unchunked one."""
     H, W = gray.shape
     if H <= chunk_rows:
         return _median_plane(gray, disp, normal, reliable, offsets,
@@ -154,6 +233,22 @@ def _median_plane_chunked(gray, disp, normal, reliable, offsets,
                             spatial_div, sigma_spatial, sigma_color)
         parts.append([a[pad:pad + rows] for a in res])
     return _MedianResult(*(torch.cat(list(p), dim=0) for p in zip(*parts)))
+
+
+def median_plane(gray, disp, normal, reliable, offsets, spatial_div,
+                 sigma_spatial, sigma_color, radius: int,
+                 chunk_rows: int = 256) -> _MedianResult:
+    """The weighted median plane of one WMF pass. CUDA tensors launch
+    kernel B4 (one launch, no row chunks); CPU tensors run
+    `_median_plane_plain` (`chunk_rows` reaches only it)."""
+    if not gray.is_cuda:
+        return _median_plane_plain(gray, disp, normal, reliable, offsets,
+                                   spatial_div, sigma_spatial, sigma_color,
+                                   radius, chunk_rows)
+    return _MedianResult(*cuda_wmf.median_plane(
+        gray, disp, normal, reliable, offsets,
+        spatial_factors(offsets, spatial_div, sigma_spatial),
+        1.0 / (sigma_color * sigma_color), radius))
 
 
 def _plane_from_median(med: _MedianResult, offsets, cams: geo.CameraSet):
@@ -190,12 +285,11 @@ def wmf_mark_outliers(gray: torch.Tensor, normal: torch.Tensor,
     """One marking pass: the new reliability mask. disp is the current
     per-pixel disparity."""
     po = 2 ** iteration
-    radius, gap = 80 // po, 16 // po
+    radius, gap, spatial_div = pass_schedule("mark", iteration)
     offsets = sample_offsets(radius, gap)
-    med = _median_plane_chunked(gray, disp, normal, reliable, offsets,
-                                float(2 ** (3 - iteration)),
-                                params.wmf_sigma_spatial,
-                                params.wmf_sigma_color, radius, chunk_rows)
+    med = median_plane(gray, disp, normal, reliable, offsets, spatial_div,
+                       params.wmf_sigma_spatial, params.wmf_sigma_color,
+                       radius, chunk_rows)
     n_med, d_med = _plane_from_median(med, offsets, cams)
     keep = (torch.abs(_disparity(cams, n_med, d_med)
                       - _disparity(cams, normal, d))
@@ -212,11 +306,11 @@ def wmf_fill(gray: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
     disparity lies in (min_disparity, max_disparity). Returns (normal, d,
     disp, reliable)."""
     po = 2 ** iteration
-    radius, gap = 5 * po, po
+    radius, gap, spatial_div = pass_schedule("fill", iteration)
     offsets = sample_offsets(radius, gap)
-    med = _median_plane_chunked(gray, disp, normal, reliable, offsets,
-                                float(po), params.wmf_sigma_spatial,
-                                params.wmf_sigma_color, radius, chunk_rows)
+    med = median_plane(gray, disp, normal, reliable, offsets, spatial_div,
+                       params.wmf_sigma_spatial, params.wmf_sigma_color,
+                       radius, chunk_rows)
     n_med, d_med = _plane_from_median(med, offsets, cams)
     disp_med = _disparity(cams, n_med, d_med)
     fill = textured & ~reliable & (med.num >= 32 // po)
