@@ -33,8 +33,10 @@ line (the 2K scene renders in one spawned process per view):
    a view) and accuracy against the scene's ground truth (acc2_pm and
    acc2_final must reach 0.95);
    (b) kernel B4 (the WMF weighted median plane) against its plain
-   version on the inputs the main path gave its ten passes
-   (kernel_times.recording_wmf_inputs): each pass at full size, one
+   version on the inputs the main path gives its ten passes, recorded
+   in a second, untimed run of the view
+   (kernel_times.wmf_view_inputs), so phase 5's seconds and peak memory
+   are the main path's alone: each pass at full size, one
    launch a call, timed beside its bound and its plain version, and cut
    to a 256x384 corner (kernel_times.wmf_crop: the image border,
    all-invalid pixels at every radius, tied keys, +-inf and NaN
@@ -521,12 +523,10 @@ def read_launches_by_shape() -> dict:
 WMF_PASSES = 4 + 6
 
 
-def run_main_path(scene_gt, root: Path, dev, wmf_calls: list) -> dict:
-    """Phase 5; `wmf_calls` receives the inputs of the view's WMF passes
-    (kernel_times.recording_wmf_inputs)."""
+def run_main_path(scene_gt, root: Path, dev) -> dict:
+    """Phase 5."""
     import numpy as np
     import torch
-    from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch import pipeline
     scene = pipeline.load_scene(root)
@@ -536,9 +536,8 @@ def run_main_path(scene_gt, root: Path, dev, wmf_calls: list) -> dict:
     timer = stage_timer(stages)
     reset_launches()
     t0 = time.perf_counter()
-    with kt.recording_wmf_inputs(wmf_calls):
-        result = pipeline.process_view(scene, 0, AlgorithmParams(),
-                                       device=dev, timer=timer)
+    result = pipeline.process_view(scene, 0, AlgorithmParams(), device=dev,
+                                   timer=timer)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = read_launches()
@@ -1399,8 +1398,8 @@ def main() -> int:
                 or sh["best_view_mismatches"]):
             raise SystemExit(f"B3 disagrees with its plain version at "
                              f"{sh}")
-    wmf_calls: list = []
-    main_res = run_main_path(scene_gt, root, dev, wmf_calls)
+    main_res = run_main_path(scene_gt, root, dev)
+    wmf_calls = kt.wmf_view_inputs(scene, AlgorithmParams(), dev)
     b4_shapes, b4_worst = check_b4(wmf_calls)
     del wmf_calls
     torch.cuda.empty_cache()

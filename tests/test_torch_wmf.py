@@ -245,6 +245,23 @@ def test_python_mirror_reads_the_kernel_constants():
     assert "__shfl_xor_sync(FULL, p, 4)" in src
 
 
+def test_b4_bound_counts_the_function_not_the_descent():
+    """B4's bound counts what a weighted median plane needs whatever
+    computes it: 5 operations a sample for the weight and the total, about
+    log2 O fixed-order sums of O adds for each of the four medians (a
+    search over the sorted keys, not B4's 32-step descent), the donor's
+    base and its index descent. At 1344x2048 with 121 offsets that is
+    4,968 operations a pixel, bound by operations at about 0.2 ms."""
+    O, steps = 121, 7
+    assert kt.b4_flops(1, O) == 5 * O + 4 * steps * O + O + steps * (O + 1)
+    assert kt.b4_flops(1, O) == 4968
+    assert kt.b4_flops(10, 2) == 10 * (5 * 2 + 4 * 2 + 2 + 3)
+    b = kt.b4_bound(1344, 2048, O)
+    assert b["bound_by"] == "operations"
+    assert b["bytes"] == 53 * 1344 * 2048
+    assert 0.20 < b["bound_ms"] < 0.21
+
+
 def test_cpu_tensors_never_reach_the_build(fields, monkeypatch):
     """median_plane on CPU tensors runs the plain version without loading
     the kernel library, and its wmf passes launch nothing."""

@@ -20,9 +20,11 @@
 //
 // What bounds it on Hopper: operations. It reads about 21 bytes a pixel
 // and writes 32 (146 MB a 1344x2048 pass, 0.04 ms at 3.35 TB/s; the
-// 121-fold reuse of the fields comes from L1 and L2), but each pixel
-// takes 4 x 32 descent steps over 121 samples: some 17,000 masked adds,
-// about 0.7 ms of float adds at 67 TFLOP/s before the compares, selects
+// 121-fold reuse of the fields comes from L1 and L2). The function needs
+// about 5,000 float operations a pixel (kernel_times.b4_flops: a search
+// over the sorted keys takes some 7 fixed-order sums a median), 0.2 ms
+// at 67 TFLOP/s. This design's radix descents take 4 x 32 sums over 121
+// samples, some 17,000 masked adds a pixel, before the compares, selects
 // and shuffles that go with them.
 //
 // What the design does about it. A block owns TILE = 32 neighbouring

@@ -20,9 +20,11 @@ sampler in grayscale, colour and n_best 3; it uses only the functions of
 this file in an older checkout times that checkout's kernel.
 `b4` times kernel B4 (the weighted median plane) at each of the ten WMF
 passes of view 0, on the inputs `process_view` gives them
-(`recording_wmf_inputs`), beside its bound, its plain version and, with
-`--before`, that file's row-chunked `_median_plane_chunked` (the plain
-PyTorch WMF the port ran before B4), loaded from the older checkout.
+(`recording_wmf_inputs`), beside its bound and its plain version. With
+`--before` it also times an older checkout's plain PyTorch WMF, the
+row-chunked `_median_plane_chunked` of its `ops/wmf.py`: only a checkout
+from before B4 has that function (later ones run B4), so the option
+serves only to compare against such a checkout.
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -92,14 +94,19 @@ B3_FLOPS_PER_PIXEL_VIEW = 12
 # view, candidate: the plane coordinate and the warp counted per view),
 # 16 a channel, 15 an epilogue.
 B3_FLOPS_PER_SAMPLE_VIEWWISE = 21
-# Float operations of B4's function, per pixel and offset: the weight
-# (subtract, multiply, exp, multiply; exp counted as one), its add to the
-# total, one masked add a descent step for each of the four medians (32
-# steps) and one to the donor's base; per pixel and index step one masked
-# add per offset and the add of the base. Bytes per pixel: gray, disp,
-# the normal (f32) and reliable (bool) read, three medians and the donor
-# disparity (f32), the donor index and the count (int64) written.
-B4_FLOPS_PER_OFFSET = 4 + 1 + 4 * 32 + 1
+# Float operations of B4's function, whatever computes it, per pixel and
+# offset: the weight (subtract, multiply, exp, multiply; exp counted as
+# one) and its add to the total. Each of the four medians then needs
+# about ceil(log2 O) fixed-order sums of O masked adds: the sums are
+# monotone in the mask, so a search over the sorted distinct keys finds
+# the median in that many (B4's radix descent takes 32; the key order's
+# integer compares are not counted). The donor needs its base (O adds)
+# and one sum of O masked adds and the add of the base per index bit.
+# Bytes per pixel: gray, disp, the normal (f32) and reliable (bool) read,
+# three medians and the donor disparity (f32), the donor index and the
+# count (int64) written.
+B4_FLOPS_PER_OFFSET = 4 + 1
+B4_MEDIANS = 4
 B4_BYTES_PER_PIXEL = 4 + 4 + 12 + 1 + 12 + 4 + 8 + 8
 # Windows (box_hsize, box_vsize; stride 2) of `time_b1_windows`: the
 # default between two that take kernel B1's generic loop.
@@ -850,9 +857,13 @@ def time_b3_all(scene, gt: dict, dev) -> dict:
 
 
 def b4_flops(px: int, O: int) -> int:
-    """Float operations of one B4 pass over `px` pixels with O offsets."""
-    nbits = max(1, (O - 1).bit_length())
-    return px * (O * B4_FLOPS_PER_OFFSET + nbits * (O + 1))
+    """Float operations of one B4 pass over `px` pixels with O offsets:
+    per pixel 5 O for the weights and their total, 4 ceil(log2 O) O for
+    the medians' searches, O for the donor's base and ceil(log2 O) (O + 1)
+    for its index (4,968 at O = 121)."""
+    steps = max(1, (O - 1).bit_length())
+    return px * (O * B4_FLOPS_PER_OFFSET + B4_MEDIANS * steps * O + O
+                 + steps * (O + 1))
 
 
 def b4_bound(H: int, W: int, O: int) -> dict:
@@ -1026,11 +1037,15 @@ def wmf_view_inputs(scene, params, dev) -> list:
 
 def load_wmf_before(path: str):
     """An older checkout's `ops/wmf.py` as a module of its own (its
-    imports resolve to this package)."""
+    imports resolve to this package). Only a checkout from before B4 has
+    the `_median_plane_chunked` that `--before` times."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("wmf_before", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    if not hasattr(mod, "_median_plane_chunked"):
+        raise SystemExit(f"{path} has no _median_plane_chunked: --before "
+                         f"takes the ops/wmf.py of a checkout from before B4")
     return mod
 
 
@@ -1081,7 +1096,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
     p.add_argument("--before", default=None,
-                   help="b4: an older checkout's ops/wmf.py to time beside")
+                   help="b4: the ops/wmf.py of a checkout from before B4 "
+                        "(its plain WMF) to time beside")
     ns = p.parse_args(argv)
     scene_dir = Path(ns.scene_dir)
     if ns.command == "render":
