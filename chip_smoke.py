@@ -40,7 +40,11 @@ line (the 2K scene renders in one spawned process per view):
    launch a call, timed beside its bound and its plain version, and cut
    to a 256x384 corner (kernel_times.wmf_crop: the image border,
    all-invalid pixels at every radius, tied keys, +-inf and NaN
-   disparities, -0.0); every output equal on its int32 view;
+   disparities, -0.0), and on the 256x384 stress inputs of its search
+   made from each pass's inputs (kernel_times.wmf_cases: keys sorted
+   along the offset order, 121 equal keys, a single valid sample, keys
+   of both signs, a NaN disparity with most of the weight); every output
+   equal on its int32 view;
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
@@ -410,8 +414,9 @@ def check_b4(calls: list) -> tuple[list, int]:
     WMF inputs `calls` (its ten passes): each pass at full size
     (kernel_times.time_b4: one launch a call, timed beside its bound and
     its plain version) and on kernel_times.wmf_crop of it; every output
-    equal on its int32 view. Prints one line for the crops; returns the
-    full-size rows and the largest |delta|."""
+    equal on its int32 view; and on kernel_times.wmf_cases of every pass
+    (the search's stress inputs). Prints one line for the crops and one
+    for the cases; returns the full-size rows and the largest |delta|."""
     from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch.ops import cuda_wmf, wmf
@@ -435,12 +440,27 @@ def check_b4(calls: list) -> tuple[list, int]:
         crops.append(r)
     print(f"B4 vs plain on 256x384 corners (phase 5b): {json.dumps(crops)} "
           f"-> {'PASS' if ok else 'FAIL'}", flush=True)
+    # The search's stress inputs (tests/test_torch_wmf.py): each case of
+    # kernel_times.wmf_cases cut from every pass's inputs.
+    cases = {}
+    for name, call in zip(kt.pass_names(params), calls):
+        for case, args in kt.wmf_cases(call, 256, 384).items():
+            args = kt.b4_args(args)
+            mk = wmf.median_plane(*args)
+            mp = wmf._median_plane_plain(*args)
+            err = kt.b4_agreement(mk, mp)["max_abs_err"]
+            cases[case] = max(cases.get(case, 0), err)
+            ok &= err == 0
+    print(f"B4 vs plain on the search's stress inputs, largest |delta| of "
+          f"the ten passes (phase 5b): {json.dumps(cases)} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
     shapes = kt.time_b4(calls, params)
     ok &= all(sh["max_abs_err"] == 0 and sh["launches_a_call"] == 1
               for sh in shapes)
     if not ok:
         raise SystemExit("B4 disagrees with its plain version")
-    return shapes, max(sh["max_abs_err"] for sh in crops + shapes)
+    return shapes, max(max(cases.values()),
+                       max(sh["max_abs_err"] for sh in crops + shapes))
 
 
 def acc2_for(scene_gt, scene, ref: int, depth, min_sources: int = 1):

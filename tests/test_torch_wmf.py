@@ -136,19 +136,27 @@ def test_median_plane_plain_matches_jax(fields, kind, iteration, chunk_rows):
 
 def emulate_kernel(gray, disp, normal, reliable, offsets, factors,
                    inv_sc):
-    """csrc/wmf.cu's loop order in numpy float32, pixels vectorised:
-    phase 1's weight and keys per offset (torch's exp on the CPU, as the
-    plain version's), then per pixel LANES lanes holding the samples s +
-    LANES j, each sum a lane's samples in j order followed by the
-    __shfl_xor_sync butterfly (lane s plus lane s ^ 4, ^ 2, ^ 1), the
-    four descents in lockstep, the donor's base and index descent, the
-    count. Returns the six outputs as numpy arrays."""
+    """csrc/wmf.cu's evaluation order in numpy float32, pixels vectorised:
+    the weight and keys per offset (torch's exp on the CPU, as the plain
+    version's; a weightless sample keeps the key the kernel reads, not the
+    plain version's +inf); per pixel LANES lanes holding the samples
+    s + LANES j, each weight sum a lane's samples in j order followed by
+    the __shfl_xor_sync butterfly (lane s plus lane s ^ 4, ^ 2, ^ 1). Each
+    median is a two-level search by rank: every lane sorts its keys, the
+    32 lane quartiles (sorted) are searched for the smallest whose weight
+    at or below reaches half; the lanes' blocks of 4 that hold their keys
+    between it and the quartile below it are sorted and searched the same
+    way. The donor's base and its index descent read a lane's running sums
+    of the weight at the median key. Returns the six outputs as numpy
+    arrays."""
     L, J = cuda_wmf.LANES, cuda_wmf.PER_LANE
     H, W = gray.shape
     O = len(offsets)
     w = np.zeros((L * J, H, W), np.float32)
-    key = np.full((4, L * J, H, W), wmf.KEY_INF, np.uint32)
     vals = [disp] + [normal[..., c] for c in range(3)]
+    # The kernel reads a sample outside the image (or past O) at the pixel
+    # itself, and keeps the key of a weightless sample as it reads it.
+    key = np.stack([np.broadcast_to(v, (L * J, H, W)) for v in vals]).copy()
     for o, (dx, dy) in enumerate(offsets):
         ys, ye = max(0, -dy), min(H, H - dy)
         xs, xe = max(0, -dx), min(W, W - dx)
@@ -158,40 +166,70 @@ def emulate_kernel(gray, disp, normal, reliable, offsets, factors,
         dst = (slice(ys, ye), slice(xs, xe))
         t = -np.abs(gray[src] - gray[dst]) * np.float32(inv_sc)
         e = torch.exp(torch.as_tensor(t)).numpy()
-        wo = np.where(reliable[src], np.float32(factors[o]) * e,
-                      np.float32(0.0))
-        w[o][dst] = wo
+        w[o][dst] = np.where(reliable[src], np.float32(factors[o]) * e,
+                             np.float32(0.0))
         for c in range(4):
-            v = np.where(vals[c][src] == 0.0, np.float32(0.0), vals[c][src])
-            b = v.view(np.uint32)
-            k = np.where(b >> 31 == 1, ~b, b | np.uint32(0x80000000))
-            key[c, o][dst] = np.where(wo > 0.0, k, np.uint32(wmf.KEY_INF))
+            key[c, o][dst] = vals[c][src]
+    key = np.where(key == 0.0, np.float32(0.0), key).view(np.uint32)
+    key = np.where(key >> 31 == 1, ~key, key | np.uint32(0x80000000))
     lw = w.reshape(J, L, H, W)
-    lk = key.reshape(4, J, L, H, W)
+    lane = np.arange(L).reshape(L, 1, 1)
+
+    def tree(acc):
+        for off in (4, 2, 1):
+            acc = acc + acc[np.arange(L) ^ off]
+        return acc[0]
 
     def lane_sums(masked):
         acc = np.zeros(masked.shape[1:], np.float32)
         for j in range(J):
             acc = acc + masked[j]
-        for off in (4, 2, 1):
-            acc = acc + acc[np.arange(L) ^ off]
-        return acc[0]
+        return tree(acc)
+
+    def take(a, i):
+        return np.take_along_axis(a, i[None], axis=0)[0]
 
     half = lane_sums(lw) * np.float32(0.5)
+
+    def search(kc, arr):
+        """The smallest index of sorted arr (32, H, W) whose weight at or
+        below reaches half: 5 fixed-order sums."""
+        lo = np.zeros((H, W), np.int64)
+        hi = np.full((H, W), 31, np.int64)
+        for _ in range(5):
+            mid = (lo + hi) // 2
+            ok = lane_sums(np.where(kc <= take(arr, mid), lw,
+                                    np.float32(0.0))) >= half
+            hi, lo = np.where(ok, mid, hi), np.where(ok, lo, mid + 1)
+        return hi
+
     med = np.zeros((4, H, W), np.uint32)
-    for i in range(32):
-        for c in range(4):
-            mid = med[c] | np.uint32(1 << (31 - i))
-            below = lane_sums(np.where(lk[c] < mid, lw, np.float32(0.0)))
-            med[c] = np.where(below < half, mid, med[c])
-    base = lane_sums(np.where(lk[0] < med[0], lw, np.float32(0.0)))
+    for c in range(4):
+        kc = key[c].reshape(J, L, H, W)
+        run = np.sort(kc, axis=0)
+        quart = run[3::4]
+        split = np.sort(quart.reshape(4 * L, H, W), axis=0)
+        h = search(kc, split)
+        hiv = take(split, h)
+        lov = take(split, np.maximum(h - 1, 0))
+        b = np.where(h > 0, (quart[:3] <= lov).sum(0), 0)
+        blk = np.take_along_axis(run, 4 * b[None] + np.arange(4).reshape(
+            4, 1, 1, 1), axis=0)
+        cand = np.sort(blk.reshape(4 * L, H, W), axis=0)
+        med[c] = np.where(half > 0, take(cand, search(kc, cand)), 0)
+    k0 = key[0].reshape(J, L, H, W)
+    base = lane_sums(np.where(k0 < med[0], lw, np.float32(0.0)))
+    at = np.where(k0 == med[0], lw, np.float32(0.0))
+    pre = [np.zeros((L, H, W), np.float32)]
+    for j in range(J):
+        pre.append(pre[-1] + at[j])
+    pre = np.stack(pre)
     nbits = max(1, (O - 1).bit_length())
-    oidx = np.arange(L * J).reshape(J, L, 1, 1)
-    mi = np.zeros((H, W), np.uint32)
+    mi = np.zeros((H, W), np.int64)
     for i in range(nbits):
-        mid = mi | np.uint32(1 << (nbits - 1 - i))
-        acc = lane_sums(np.where((oidx < mid) & (lk[0] == med[0]), lw,
-                                 np.float32(0.0)))
+        mid = mi | (1 << (nbits - 1 - i))
+        upto = np.clip((mid - lane + L - 1) // L, 0, J)
+        acc = tree(np.take_along_axis(pre, upto[None], axis=0)[0])
         mi = np.where(base + acc < half, mid, mi)
     mi = np.minimum(mi, O - 1)
     as_float = np.where(med >> 31 == 1, med & np.uint32(0x7FFFFFFF),
@@ -200,18 +238,45 @@ def emulate_kernel(gray, disp, normal, reliable, offsets, factors,
             as_float[0], (w > 0.0).sum(0))
 
 
-@pytest.mark.parametrize("kind,iteration", [("mark", 2), ("fill", 1)])
-def test_kernel_order_emulation_equals_plain(fields, kind, iteration):
-    """An emulation of the kernel's loop order equals the plain version
-    to the bit on a 48x64 corner of the scene with tied and non-finite
-    disparities, -0.0 components and an unreliable block."""
-    f = {k: np.array(v[:48, :64]) for k, v in fields.items()}
+def _corner(f):
+    """The scene's 48x64 corner with tied and non-finite disparities, -0.0
+    normal components, an unreliable block and all-invalid pixels."""
+    f = {k: np.array(v[:48, :64]) for k, v in f.items()}
     f["disp"][24:, 32:] = np.round(f["disp"][24:, 32:] * 4) / 4
     f["normal"][24:, 32:] = np.round(f["normal"][24:, 32:] * 8) / 8
     f["disp"].reshape(-1)[::53] = np.inf
     f["disp"].reshape(-1)[1::59] = np.nan
     f["normal"].reshape(-1)[2::61] = -0.0
     f["reliable"][:24, :24] = False
+    return f
+
+
+def _adversarial(f, name):
+    """Case `name` of kernel_times.wmf_cases on the scene's 48x64 corner,
+    as numpy fields."""
+    call = {k: torch.as_tensor(v) for k, v in f.items()}
+    got = kt.wmf_cases(call, 48, 64)[name]
+    return {k: got[k].numpy() for k in ("gray", "disp", "normal",
+                                          "reliable")}
+
+
+# (case, pass kind, pass iteration): the corner at a marking and a fill
+# pass, each stress case of kernel_times.wmf_cases at one of them.
+EMULATION_CASES = [("corner", "mark", 2), ("corner", "fill", 1),
+                   ("slanted", "fill", 1), ("equal", "mark", 2),
+                   ("one_valid", "fill", 1), ("cross_zero", "mark", 2),
+                   ("nan_heavy", "fill", 1)]
+
+
+@pytest.mark.parametrize("case,kind,iteration", EMULATION_CASES)
+def test_kernel_order_emulation_equals_plain(fields, case, kind, iteration):
+    """An emulation of the kernel's search order (its pivot rule
+    included) equals the plain version's radix descent to the bit: the
+    scene's corner with ties, non-finite keys, -0.0 and all-invalid
+    pixels; keys sorted along the offset order; 121 equal keys; a single
+    valid sample; keys of both signs; a NaN disparity (0x7FFFFFFF) with
+    most of the weight."""
+    f = _corner(fields) if case == "corner" else _adversarial(fields, case)
     radius, gap, div = wmf.pass_schedule(kind, iteration)
     offsets = wmf.sample_offsets(radius, gap)
     factors = wmf.spatial_factors(offsets, div, SIGMA_SPATIAL)
@@ -223,13 +288,21 @@ def test_kernel_order_emulation_equals_plain(fields, kind, iteration):
         np.testing.assert_array_equal(
             np.ascontiguousarray(a).view(np.int32),
             np.ascontiguousarray(b.numpy()).view(np.int32), err_msg=name)
-    assert (plain.num.numpy() == 0).any() and (plain.num.numpy() > 0).any()
+    num = plain.num.numpy()
+    if case in ("corner", "one_valid"):
+        assert (num == 0).any() and (num > 0).any()
+    if case == "one_valid":
+        assert num.max() == 1
+    if case == "nan_heavy":
+        assert (_bits(plain.donor_disp.numpy()) == 0x7FFFFFFF).mean() > 0.5
 
 
 def test_python_mirror_reads_the_kernel_constants():
     """LANES and PER_LANE of cuda_wmf (and so the plain version's sum
-    order) are the kernel's, and the kernel's +inf key is the plain
-    version's."""
+    order) are the kernel's, and the search the emulation mirrors is the
+    kernel's: 32 splitters (4 quartiles of 8 lanes) searched in 5 steps,
+    twice, each step a sum of the weights at or below a key; the donor's
+    base the sum below the median key."""
     src = SOURCE.read_text()
 
     def const(name):
@@ -239,19 +312,24 @@ def test_python_mirror_reads_the_kernel_constants():
     assert const("LANES") == cuda_wmf.LANES == wmf.LANES
     assert const("PER_LANE") == cuda_wmf.PER_LANE
     assert cuda_wmf.MAX_O >= 121
-    key_inf = int(re.search(r"KEY_INF = (0x[0-9A-F]+)u", src).group(1), 16)
-    assert key_inf == wmf.KEY_INF == int(wmf.float_to_ordered_key(
-        torch.tensor([float("inf")]))[0])
     assert "__shfl_xor_sync(FULL, p, 4)" in src
+    assert re.search(r"constexpr int SPLIT = 4 \* LANES;", src)
+    assert "for (int step = SPLIT / 2; step > 0; step >>= 1)" in src
+    assert src.count("search(split, w, k, half)") == 2
+    assert "q[b] = k[4 * b + 3];" in src
+    assert "setp.le.u32" in src and "setp.lt.u32" in src
+    assert "weight_upto<true>(w, k, mc)" in src
 
 
 def test_b4_bound_counts_the_function_not_the_descent():
     """B4's bound counts what a weighted median plane needs whatever
     computes it: 5 operations a sample for the weight and the total, about
     log2 O fixed-order sums of O adds for each of the four medians (a
-    search over the sorted keys, not B4's 32-step descent), the donor's
-    base and its index descent. At 1344x2048 with 121 offsets that is
-    4,968 operations a pixel, bound by operations at about 0.2 ms."""
+    search over the sorted keys, not the plain version's 32-step descent
+    nor B4's 10 sums), the donor's base and its index descent. At
+    1344x2048 with 121 offsets that is 4,968 operations a pixel, bound by
+    operations at about 0.2 ms, and 0.408 ms at the rate of single
+    rounded adds (the ceiling)."""
     O, steps = 121, 7
     assert kt.b4_flops(1, O) == 5 * O + 4 * steps * O + O + steps * (O + 1)
     assert kt.b4_flops(1, O) == 4968
@@ -260,6 +338,10 @@ def test_b4_bound_counts_the_function_not_the_descent():
     assert b["bound_by"] == "operations"
     assert b["bytes"] == 53 * 1344 * 2048
     assert 0.20 < b["bound_ms"] < 0.21
+    # Every operation counted is a single rounded add or multiply: at
+    # half the 67 TFLOP/s that counts an FMA as two, 0.408 ms.
+    assert b["ceiling_ms"] == pytest.approx(2 * b["operations_ms"])
+    assert 0.40 < b["ceiling_ms"] < 0.41
 
 
 def test_cpu_tensors_never_reach_the_build(fields, monkeypatch):
@@ -346,3 +428,41 @@ def test_b4_kernel_matches_plain_on_card(fields, kind, iteration):
     agree = kt.b4_agreement(mk, mp)
     assert agree["max_abs_err"] == 0, agree
     assert (mp.num == 0).any() and (mp.num > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("corner",) + kt.WMF_CASES)
+@pytest.mark.parametrize("kind,iteration", [("mark", 0), ("fill", 1)])
+def test_b4_kernel_matches_plain_on_adversarial_inputs(fields, case, kind,
+                                                       iteration):
+    """Kernel B4 against its plain version on the card on the emulation
+    test's stress inputs (kernel_times.wmf_cases, and the corner of
+    kernel_times.wmf_crop) cut to 256x384 from the scene tiled 3x3, at
+    the widest marking pass and a fill pass: every output equal on its
+    int32 view. Needs an NVIDIA GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    tiled = {k: torch.as_tensor(np.tile(v, (3, 3) + (1,) * (v.ndim - 2)),
+                                device=dev) for k, v in fields.items()}
+    radius, gap, div = wmf.pass_schedule(kind, iteration)
+    call = {**tiled, "offsets": wmf.sample_offsets(radius, gap),
+            "spatial_div": div, "sigma_spatial": SIGMA_SPATIAL,
+            "sigma_color": SIGMA_COLOR, "radius": radius}
+    call = (kt.wmf_crop(call) if case == "corner"
+            else kt.wmf_cases(call, 256, 384)[case])
+    args = kt.b4_args(call)
+    mk = wmf.median_plane(*args)
+    mp = wmf._median_plane_plain(*args)
+    torch.cuda.synchronize()
+    agree = kt.b4_agreement(mk, mp)
+    assert agree["max_abs_err"] == 0, agree
+
+
+def test_b4_parts_edit_the_kernel_source():
+    """Every part that `kernel_times b4-parts` takes out of B4 names text
+    that csrc/wmf.cu holds, so the command times the kernel as it is."""
+    src = SOURCE.read_text()
+    for part, edits in kt.B4_PARTS.items():
+        for old, new in edits:
+            assert src.count(old) >= 1 and old != new, part

@@ -9,6 +9,8 @@ the same grids and candidate counts as B1's.
     python -m tsar_mvs_tpu_torch.kernel_times b3 <scene_dir> [--json OUT]
     python -m tsar_mvs_tpu_torch.kernel_times b4 <scene_dir> [--json OUT]
         [--before <older checkout>/tsar_mvs_tpu_torch/ops/wmf.py]
+    python -m tsar_mvs_tpu_torch.kernel_times b4-parts <scene_dir>
+        [--json OUT]
 
 `render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
 pair.txt) and view 0's ground truth (`gt_view0.npz`) once (one spawned
@@ -24,7 +26,9 @@ passes of view 0, on the inputs `process_view` gives them
 `--before` it also times an older checkout's plain PyTorch WMF, the
 row-chunked `_median_plane_chunked` of its `ops/wmf.py`: only a checkout
 from before B4 has that function (later ones run B4), so the option
-serves only to compare against such a checkout.
+serves only to compare against such a checkout. `b4-parts` times B4 at
+two of those passes as built and with each of its parts taken out
+(`B4_PARTS`): what each part costs.
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -49,8 +53,8 @@ The bound of a shape is the larger of bytes / 3.35 TB/s (each input read
 and each output written once; of the volume, the bytes this plane field
 touches) and operations / 67 TFLOP/s (float32 outside the tensor cores),
 the published peaks of an H100 SXM. 67 TFLOP/s counts a fused
-multiply-add as two operations; B1 and B3 round every step to equal
-their plain versions to the bit, so they cannot fuse, and their
+multiply-add as two operations; B1, B3 and B4 round every step to
+equal their plain versions to the bit, so they cannot fuse, and their
 `ceiling_ms` counts the operations at half that rate.
 """
 
@@ -99,8 +103,9 @@ B3_FLOPS_PER_SAMPLE_VIEWWISE = 21
 # one) and its add to the total. Each of the four medians then needs
 # about ceil(log2 O) fixed-order sums of O masked adds: the sums are
 # monotone in the mask, so a search over the sorted distinct keys finds
-# the median in that many (B4's radix descent takes 32; the key order's
-# integer compares are not counted). The donor needs its base (O adds)
+# the median in that many (the plain version's radix descent takes 32,
+# B4's two-level search 10; the key order's integer compares and sorts
+# are not counted). The donor needs its base (O adds)
 # and one sum of O masked adds and the add of the base per index bit.
 # Bytes per pixel: gray, disp, the normal (f32) and reliable (bool) read,
 # three medians and the donor disparity (f32), the donor index and the
@@ -868,14 +873,18 @@ def b4_flops(px: int, O: int) -> int:
 
 def b4_bound(H: int, W: int, O: int) -> dict:
     """B4's bound at an H x W pass with O offsets: the larger of its bytes
-    over 3.35 TB/s and its operations (b4_flops) over 67 TFLOP/s."""
+    over 3.35 TB/s and its operations (b4_flops) over 67 TFLOP/s; and its
+    ceiling, the operations at half that rate (`ceiling_ms`): every
+    operation counted is a single rounded add or multiply, which the
+    67 TFLOP/s peak counts once in a fused multiply-add's two."""
     nbytes = B4_BYTES_PER_PIXEL * H * W
     flops = b4_flops(H * W, O)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
             "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ceiling_ms": max(t_bytes, 2.0 * t_ops)}
 
 
 @contextlib.contextmanager
@@ -951,6 +960,64 @@ def wmf_crop(call: dict, rows: int = 256, cols: int = 384) -> dict:
     n.view(-1)[3::89] = -0.0
     c.update(gray=g.contiguous(), disp=d, normal=n, reliable=r)
     return c
+
+
+WMF_CASES = ("slanted", "equal", "one_valid", "cross_zero", "nan_heavy")
+
+
+def wmf_cases(call: dict, rows: int, cols: int) -> dict:
+    """Inputs that stress B4's search, each a pass's inputs `call` cut to
+    its top-left rows x cols with some fields replaced (no random draws,
+    so every device builds the same pattern from the same call):
+    "slanted", a plane rising fastest in x, so every pixel's keys are
+    sorted along the offset order (dx major), normals likewise; "equal",
+    one disparity and one normal everywhere (all 121 keys tie); "one_valid",
+    a single reliable pixel, so its neighbours see one valid sample or
+    none; "cross_zero", disparities and normal components of both signs
+    around zero with exact +-0.0 (no common prefix of the ordered keys);
+    "nan_heavy", the NaN whose bits are 0x7FFFFFFF (the largest ordered
+    key) as the disparity of 70% of the pixels, so it carries most of the
+    weight."""
+    import torch
+    g, d, n, r = (call[k][:rows, :cols].clone()
+                  for k in ("gray", "disp", "normal", "reliable"))
+    dev = d.device
+    yy, xx = torch.meshgrid(torch.arange(rows, dtype=torch.float32,
+                                         device=dev),
+                            torch.arange(cols, dtype=torch.float32,
+                                         device=dev), indexing="ij")
+    base = {**call, "gray": g.contiguous()}
+
+    def case(disp, normal, reliable):
+        return {**base, "disp": disp.contiguous(),
+                "normal": normal.contiguous(),
+                "reliable": reliable.contiguous()}
+
+    ones = torch.ones_like(xx)
+    nan = torch.tensor(0x7FFFFFFF, dtype=torch.int32,
+                       device=dev).view(torch.float32)
+    cross = torch.stack([0.1 * torch.sin(0.37 * xx + 0.11 * yy),
+                         0.1 * torch.cos(0.23 * xx - 0.29 * yy),
+                         0.05 * torch.sin(0.13 * xx + 0.41 * yy)], dim=-1)
+    cross.view(-1)[::7] = 0.0
+    cross.view(-1)[3::11] = -0.0
+    cross_disp = 0.5 * torch.sin(0.31 * xx - 0.19 * yy)
+    cross_disp.view(-1)[::13] = -0.0
+    lone = torch.zeros_like(r)
+    lone[rows // 2, cols // 2] = True
+    return {
+        "slanted": case(20.0 + 0.25 * xx + 0.001 * yy,
+                        torch.stack([0.1 + 1e-3 * xx + 1e-6 * yy,
+                                     0.2 + 1e-3 * xx + 1e-6 * yy,
+                                     -1.0 + 1e-4 * xx + 1e-7 * yy], -1),
+                        torch.ones_like(r)),
+        "equal": case(30.0 * ones,
+                      torch.stack([0.0 * ones, 0.0 * ones, -ones], -1), r),
+        "one_valid": case(d, n, lone),
+        "cross_zero": case(cross_disp, cross, r),
+        "nan_heavy": case(torch.where((xx + 2.0 * yy) % 10.0 < 7.0, nan, d),
+                          n, torch.ones_like(r)),
+    }
 
 
 def wmf_truth_call(scene_gt, cams, params, gen, kind: str = "mark",
@@ -1068,6 +1135,93 @@ def time_b4_all(scene, dev, before: str | None) -> dict:
     return res
 
 
+# What each part of B4 costs: csrc/wmf.cu with that part taken out (a
+# text replacement; the results are then wrong, only the time counts).
+B4_PARTS = {
+    "sort": [("sort16(k);", ";")],
+    "merges": [("merge_lanes(v, s);", ";")],
+    "sums": [("for (int j = 0; j < PER_LANE; ++j) add_if<strict>(acc, k[j], "
+              "p, w[j]);", "add_if<strict>(acc, k[0], p, w[0]);")],
+    "trees": [("""  p = __fadd_rn(p, __shfl_xor_sync(FULL, p, 4));
+  p = __fadd_rn(p, __shfl_xor_sync(FULL, p, 2));
+  p = __fadd_rn(p, __shfl_xor_sync(FULL, p, 1));""", "")],
+    "searches": [("const int h = search(split, w, k, half);",
+                  "const int h = k[0] & 31;"),
+                 ("const int at = search(split, w, k, half);",
+                  "const int at = k[1] & 31;")],
+    "key_gathers": [("k[j] = ordered_key(field[step * (int)k[j]]);",
+                     "k[j] = ordered_key(__int_as_float(k[j] * 2654435761u "
+                     "+ c));")],
+    "weight_gathers": [("""      const float gq = gray[q[j]];
+      const bool rq = reliable[q[j]];""", """      const float gq = __int_as_float(q[j]);
+      const bool rq = q[j] & 1;""")],
+    "donor": [("    if (c == 0) {\n      // The donor",
+               "    if (c == 4) {\n      // The donor")],
+}
+
+
+def time_b4_parts(calls: list, params, repeats: int = 2) -> dict:
+    """B4's ms at the widest marking pass and the first fill pass of
+    `calls` (mark 0, fill 0) as built from csrc/wmf.cu and with each part
+    of B4_PARTS taken out (each variant one nvcc, all started together),
+    `repeats` rounds in alternating order: {pass: {variant: [ms, ...]}}."""
+    import ctypes
+    import tempfile
+    import torch
+    from tsar_mvs_tpu_torch import _build
+    from tsar_mvs_tpu_torch.ops import wmf
+    src = (_build.CSRC / "wmf.cu").read_text()
+    variants = {"whole": src}
+    for part, edits in B4_PARTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"b4-parts: {part}: csrc/wmf.cu has no "
+                                 f"{old!r}")
+            text = text.replace(old, new)
+        variants[f"no_{part}"] = text
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        procs = {}
+        for name, text in variants.items():
+            so, cu = Path(tmp) / f"{name}.so", Path(tmp) / f"{name}.cu"
+            cu.write_text(text)
+            procs[name] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                 str(so), str(cu)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        libs = {}
+        for name, proc in procs.items():
+            if proc.wait() != 0:
+                raise SystemExit(f"b4-parts: nvcc failed on {name}:\n"
+                                 f"{proc.stderr.read()}")
+            lib = ctypes.CDLL(str(Path(tmp) / f"{name}.so"))
+            lib.tsar_wmf_median.argtypes = _build.SIGNATURES[
+                "tsar_wmf_median"]
+            lib.tsar_wmf_median.restype = ctypes.c_int
+            libs[name] = lib
+    out = {}
+    loaded = _build.load_library()
+    try:
+        for name, call in zip(pass_names(params), calls):
+            if name not in ("mark 0", "fill 0"):
+                continue
+            args = b4_args(call)
+            times: dict = {v: [] for v in variants}
+            for r in range(repeats):
+                for v in (list(variants) if r % 2 == 0
+                          else list(variants)[::-1]):
+                    _build._lib = libs[v]
+                    times[v].append(time_ms(
+                        lambda: wmf.median_plane(*args), 10))
+            print(f"B4 parts, {name}: {json.dumps(times)}", flush=True)
+            out[name] = times
+    finally:
+        _build._lib = loaded
+        torch.cuda.synchronize()
+    return out
+
+
 def time_all(scene, gt: dict, dev) -> dict:
     """Every B1, B2 and B3 shape, level by level (one level's volumes live
     at a time), B1's windows on the last level, then the PatchMatch
@@ -1092,7 +1246,8 @@ def time_all(scene, gt: dict, dev) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
-    p.add_argument("command", choices=("render", "time", "b3", "b4"))
+    p.add_argument("command", choices=("render", "time", "b3", "b4",
+                                        "b4-parts"))
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
     p.add_argument("--before", default=None,
@@ -1117,6 +1272,11 @@ def main(argv: list[str] | None = None) -> int:
         gt = {"depth": z["depth"], "normal_world": z["normal_world"]}
     if ns.command == "b4":
         res = time_b4_all(scene, dev, ns.before)
+    elif ns.command == "b4-parts":
+        from tsar_mvs_tpu_torch.config import AlgorithmParams
+        params = AlgorithmParams()
+        res = {"parts": time_b4_parts(wmf_view_inputs(scene, params, dev),
+                                      params)}
     else:
         res = (time_all if ns.command == "time" else time_b3_all)(scene, gt,
                                                                   dev)
