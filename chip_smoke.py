@@ -30,12 +30,12 @@ line (the 2K scene renders in one spawned process per view):
    (7 sources, 8 iterations, default AlgorithmParams) with per-stage
    seconds, peak device memory, kernel launch counts (in all and by
    shape, as the wrappers counted them; kernel B4 once per WMF pass, 10
-   a view) and accuracy against the scene's ground truth (acc2_pm and
-   acc2_final must reach 0.95);
+   a view; kernel B5 once) and accuracy against the scene's ground truth
+   (acc2_pm and acc2_final must reach 0.95);
    (b) kernel B4 (the WMF weighted median plane) against its plain
    version on the inputs the main path gives its ten passes, recorded
    in a second, untimed run of the view
-   (kernel_times.wmf_view_inputs), so phase 5's seconds and peak memory
+   (kernel_times.view_inputs), so phase 5's seconds and peak memory
    are the main path's alone: each pass at full size, one
    launch a call, timed beside its bound and its plain version, and cut
    to a 256x384 corner (kernel_times.wmf_crop: the image border,
@@ -45,6 +45,17 @@ line (the 2K scene renders in one spawned process per view):
    along the offset order, 121 equal keys, a single valid sample, keys
    of both signs, a NaN disparity with most of the weight); every output
    equal on its int32 view;
+   (c) kernel B5 (the region RANSAC of a view) against its plain version
+   on the RANSAC inputs recorded in the same second run (the view's
+   regions, their sizes printed, their points and draws): one launch,
+   timed beside its bound, its ceiling, its dependent chain (B5 on 3
+   points) and its plain version; and on the stress inputs of
+   kernel_times.ransac_cases at the view's rounds (3 points, 64 equal
+   points, 64 collinear points, a point with an infinite coordinate,
+   counts tied across hypotheses, a threshold that climbs to thr_max,
+   50,000 points on a plane with 30% outliers), each alone and all in
+   one launch; planes and thresholds equal on their int32 views, counts
+   equal;
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
@@ -98,7 +109,8 @@ line (the 2K scene renders in one spawned process per view):
        on the card, make_scene(336, 512, num_views=4), on the s-volume
        and the direct sampler: depths and normals bit-equal, fused point
        counts equal, every rank on cuda and launching its sampler's
-       kernels (B1 and B2, or B3);
+       kernels (B1 and B2, or B3), and B5 once for every view of the two
+       ranks that has a trueweak region (at this size none has one);
    (c) the batched runner's call sites of B1, B2 and B3 (batch_sampler,
        make_batch_cost_fn) on both scenes, at every pyramid level with
        the inputs the sharded path gives them (warp factors scaled per
@@ -120,8 +132,10 @@ line (the 2K scene renders in one spawned process per view):
        defaults (96x128, 2 iterations, 2 scenes).
 
 Every view of phases 5-10 launches B4 once per WMF pass (10 a view,
-80 in the sharded scene), the crosschecks' and phase 5(b)'s launches
-aside. After phase 5, PatchMatch's seconds split into B1, B2 and the rest
+80 in the sharded scene) and B5 once (8 in the sharded scene; a view
+without a trueweak region of 3 reliable points launches no B5, and the
+checks count such views from tsar.VIEWS_WITHOUT_REGIONS and print
+them), the crosschecks' and phase 5(b)'s and 5(c)'s launches aside. After phase 5, PatchMatch's seconds split into B1, B2 and the rest
 (profiler), and on the direct paths (grayscale, colour, n_best 3) into B3
 and the rest, B3 once per evaluation. At the end one JSON line of
 per-kernel results (the top-level numbers of a kernel
@@ -463,6 +477,49 @@ def check_b4(calls: list) -> tuple[list, int]:
                        max(sh["max_abs_err"] for sh in crops + shapes))
 
 
+def check_b5(calls: list) -> tuple[list, int]:
+    """Phase 5(c): kernel B5 against its plain version on the main path's
+    RANSAC inputs `calls` (one RansacInputs: view 0's regions, their
+    points and draws; kernel_times.time_b5: one launch a call, timed
+    beside its bound, its chain and its plain version) and on the stress
+    inputs of kernel_times.ransac_cases at the view's rounds and
+    annealing rounds, each alone and all in one launch: planes and
+    thresholds equal on their int32 views, counts equal. Prints one line
+    for the cases; returns the rows of `time_b5` and the largest
+    |delta|."""
+    import torch
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.models import ransac
+    from tsar_mvs_tpu_torch.ops import cuda_ransac
+    if len(calls) != 1:
+        raise SystemExit(f"the main path made {len(calls)} RANSAC calls, "
+                         f"not 1")
+    shapes = kt.time_b5(calls)
+    ok = all(sh["max_abs_err"] == 0 and sh["launches_a_call"] == 1
+             for sh in shapes)
+    rounds, anneal = calls[0].idx.shape[1], calls[0].deltas.shape[1]
+    cases = kt.ransac_cases(50000, rounds, anneal, calls[0].points.device)
+    res = {}
+    for names in [(c,) for c in kt.RANSAC_CASES] + [kt.RANSAC_CASES]:
+        inp = kt.pack_cases(cases, names)
+        before = cuda_ransac.LAUNCHES
+        mk = ransac.ransac_regions(inp)
+        launches = cuda_ransac.LAUNCHES - before
+        mp = ransac.ransac_regions_plain(inp)
+        r = {"points": kt.region_sizes(inp), "launches": launches,
+             "inliers": mp[1].tolist(), "thr": mp[2].tolist(),
+             "delta": kt.b5_agreement(mk, mp)}
+        r["max_abs_err"] = r["delta"]["max_abs_err"]
+        ok &= r["max_abs_err"] == 0 and launches == 1
+        res[names[0] if len(names) == 1 else "all"] = r
+    torch.cuda.empty_cache()
+    print(f"B5 vs plain on the stress inputs (phase 5c): {json.dumps(res)} "
+          f"-> {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("B5 disagrees with its plain version")
+    return shapes, max(r["max_abs_err"] for r in [*shapes, *res.values()])
+
+
 def acc2_for(scene_gt, scene, ref: int, depth, min_sources: int = 1):
     """acc2 of a depth map over the matchable textured pixels of view
     `ref` (finite GT, not weak, seen by at least `min_sources` sources of
@@ -501,17 +558,30 @@ def stage_timer(stages: dict):
 
 def _wrappers() -> dict:
     """The kernel wrappers by key: B1 "ncc", B2 "warp", B3 "direct", B4
-    "wmf"."""
+    "wmf", B5 "ransac"."""
     from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp
-    from tsar_mvs_tpu_torch.ops import cuda_wmf
+    from tsar_mvs_tpu_torch.ops import cuda_ransac, cuda_wmf
     return {"ncc": cuda_ncc, "warp": cuda_warp, "direct": cuda_direct,
-            "wmf": cuda_wmf}
+            "wmf": cuda_wmf, "ransac": cuda_ransac}
 
 
 def reset_launches() -> None:
+    """Every wrapper's counts, and the count of refined views without a
+    RANSAC region, to 0."""
+    from tsar_mvs_tpu_torch.models import tsar
     for mod in _wrappers().values():
         mod.LAUNCHES = 0
         mod.LAUNCHES_BY_SHAPE.clear()
+    tsar.VIEWS_WITHOUT_REGIONS = 0
+
+
+def b5_expected(views: int) -> int:
+    """Kernel B5's launches in a run (since reset_launches) that refined
+    `views` views: one a view, less the views that had no trueweak region
+    of 3 reliable points, for which B5 launches nothing
+    (tsar.VIEWS_WITHOUT_REGIONS counts them)."""
+    from tsar_mvs_tpu_torch.models import tsar
+    return views - tsar.VIEWS_WITHOUT_REGIONS
 
 
 def read_launches() -> dict:
@@ -521,7 +591,8 @@ def read_launches() -> dict:
 def read_launches_by_shape() -> dict:
     """The wrappers' counts by shape: B1 by packed or dense grid and
     candidates of the launch, B2 by image grid and planes, B3 by grid,
-    candidates, channels and n_best, B4 by image grid, radius and gap."""
+    candidates, channels and n_best, B4 by image grid, radius and gap, B5
+    by regions and the largest region's points."""
     w = _wrappers()
     return {"ncc": [{"grid": [hc, wc], "C": c, "launches": n}
                     for (hc, wc, c), n
@@ -535,7 +606,10 @@ def read_launches_by_shape() -> dict:
                        in sorted(w["direct"].LAUNCHES_BY_SHAPE.items())],
             "wmf": [{"grid": [h, w_], "radius": r, "gap": g, "launches": n}
                     for (h, w_, r, g), n
-                    in sorted(w["wmf"].LAUNCHES_BY_SHAPE.items())]}
+                    in sorted(w["wmf"].LAUNCHES_BY_SHAPE.items())],
+            "ransac": [{"regions": r, "largest_n": m, "launches": n}
+                       for (r, m), n
+                       in sorted(w["ransac"].LAUNCHES_BY_SHAPE.items())]}
 
 
 # WMF passes a view at the default AlgorithmParams (wmf_iters +
@@ -586,9 +660,10 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
         raise SystemExit(f"main path artifacts: missing {missing}, "
                          f"finite depth {finite}")
     if (min(launches["ncc"], launches["warp"]) == 0 or launches["direct"]
-            or launches["wmf"] != WMF_PASSES):
-        raise SystemExit(f"the main path launches B1, B2 and B4 (once per "
-                         f"WMF pass) only: {launches}")
+            or launches["wmf"] != WMF_PASSES or launches["ransac"] != 1):
+        raise SystemExit(f"the main path launches B1, B2, B4 (once per "
+                         f"WMF pass) and B5 (once: view 0 has trueweak "
+                         f"regions) only: {launches}")
     for kernel, total in launches.items():
         if sum(sh["launches"] for sh in by_shape[kernel]) != total:
             raise SystemExit(f"{kernel}: launches by shape {by_shape} do "
@@ -614,6 +689,7 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
     torch.cuda.synchronize()
     views_s = time.perf_counter() - t0
     launches = read_launches()
+    b5 = b5_expected(len(scene.names) - 1)
     t0 = time.perf_counter()
     fused = pipeline.fuse_scene(root, device=dev)
     torch.cuda.synchronize()
@@ -634,12 +710,15 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
            "acc2_final": acc2_final, "fuse_s": fuse_s,
            "points": n_points, "f1": fs.f1, "precision": fs.precision,
            "recall": fs.recall, "score_s": time.perf_counter() - t0,
-           "launches": launches}
+           "launches": launches,
+           "views_without_regions": len(scene.names) - 1 - b5}
     print(f"scene phase: {json.dumps(res)}", flush=True)
     if (min(launches["ncc"], launches["warp"]) == 0
-            or launches["wmf"] != (len(scene.names) - 1) * WMF_PASSES):
+            or launches["wmf"] != (len(scene.names) - 1) * WMF_PASSES
+            or launches["ransac"] != b5 or b5 == 0):
         raise SystemExit(f"a kernel was not launched in the scene (B4 once "
-                         f"per WMF pass of views 1-7): {launches}")
+                         f"per WMF pass of views 1-7, B5 once a view with "
+                         f"a trueweak region: {b5}): {launches}")
     if fs.f1 < 0.94 or min(acc2_final) < 0.95:
         raise SystemExit(f"scene below its limits: F1 {fs.f1}, "
                          f"acc2_final {acc2_final}")
@@ -717,8 +796,10 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
         used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
                 ) if pm_iterations else set()
         used.add("wmf")
+        if b5_expected(1):
+            used.add("ransac")
         if any((la[k] > 0) != (k in used) for k in la) or \
-                la["wmf"] != WMF_PASSES:
+                la["wmf"] != WMF_PASSES or la["ransac"] != b5_expected(1):
             raise SystemExit(f"the APD branch launched {la}; expected "
                              f"{sorted(used) or 'none'}")
         if res["acc2_final"] < least:
@@ -766,7 +847,7 @@ def run_direct_view(scene_gt, scene, params, out_dir: Path, dev,
         res["acc2_final_seen_by_1"] = acc2_for(scene_gt, scene, 0,
                                                result.depth)["textured"]
     expect = {"ncc": 0, "warp": 0, "direct": evaluations,
-              "wmf": WMF_PASSES}
+              "wmf": WMF_PASSES, "ransac": b5_expected(1)}
     if res["launches"] != expect:
         raise SystemExit(f"direct view: launches {res['launches']}, "
                          f"expected {expect}")
@@ -849,9 +930,9 @@ def run_odd_phase(dev) -> dict:
             torch.cuda.synchronize()
             la = read_launches()
             used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
-                    ) | {"wmf"}
+                    ) | {"wmf"} | ({"ransac"} if b5_expected(1) else set())
             if any((la[k] > 0) != (k in used) for k in la) or \
-                    la["wmf"] != WMF_PASSES:
+                    la["wmf"] != WMF_PASSES or la["ransac"] != b5_expected(1):
                 raise SystemExit(f"{h}x{w} {impl}: launches {la}")
             runs[f"{h}x{w} {impl}"] = {
                 "seconds": time.perf_counter() - t0, "render_s": render_s,
@@ -934,6 +1015,7 @@ def run_sharded_phase(scene_gt, root: Path, dev, evaluations: int,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_launches()
+        b5 = b5_expected(V)
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
@@ -961,10 +1043,11 @@ def run_sharded_phase(scene_gt, root: Path, dev, evaluations: int,
            if fused.exists() else None,
            "f1": fs.f1, "precision": fs.precision, "recall": fs.recall,
            "sequential_points": sequential["points"],
-           "sequential_f1": sequential["f1"], "artifacts_written": written}
+           "sequential_f1": sequential["f1"], "artifacts_written": written,
+           "views_without_regions": V - b5}
     print(f"sharded scene (phase 9a): {json.dumps(res)}", flush=True)
     expect = {"ncc": V * evaluations, "warp": V * builds, "direct": 0,
-              "wmf": V * WMF_PASSES}
+              "wmf": V * WMF_PASSES, "ransac": b5}
     if launches != expect:
         raise SystemExit(f"sharded scene: launches {launches}, expected "
                          f"{expect}")
@@ -1174,8 +1257,10 @@ def sharded_rank(root: str, out: str) -> None:
     if mesh.device.type != "cuda":
         raise SystemExit(f"rank {mesh.rank} runs on {mesh.device}")
     scene = pipeline.load_scene(root)
+    from tsar_mvs_tpu_torch.models import tsar
     info = {"rank": mesh.rank, "world": mesh.world,
-            "device": str(mesh.device), "launches": {}}
+            "device": str(mesh.device), "launches": {},
+            "views_without_regions": {}}
     for impl in SHARDED_IMPLS:
         reset_launches()
         depths, normals, cloud = scene_sharded.process_scene_sharded(
@@ -1183,6 +1268,7 @@ def sharded_rank(root: str, out: str) -> None:
             write_artifacts=False)
         torch.cuda.synchronize()
         info["launches"][impl] = read_launches()
+        info["views_without_regions"][impl] = tsar.VIEWS_WITHOUT_REGIONS
         if mesh.rank == 0:
             np.savez(Path(out) / f"{impl}.npz", depths=depths,
                      normals=normals, points=cloud.points)
@@ -1193,7 +1279,8 @@ def run_sharded_ranks_phase(dev) -> dict:
     """Phase 9(b): two ranks sharing the card in a gloo group against world
     1 on the card, at SHARDED_SMALL, on both samplers: depths and normals
     bit-equal and the fused point counts equal; every rank on cuda and
-    launching the sampler's kernels (B1 and B2, or B3)."""
+    launching the sampler's kernels (B1 and B2, or B3), and B5 once a view
+    with a trueweak region over the ranks."""
     import numpy as np
     import torch
     from tsar_mvs_tpu_torch import pipeline
@@ -1243,7 +1330,14 @@ def run_sharded_ranks_phase(dev) -> dict:
              "points_world2": int(got["points"].shape[0]),
              "points_bit_equal": bool(np.array_equal(p1, got["points"]))}
         launched = all((info["launches"][impl][k] > 0) == (k in used[impl])
-                       for info in infos for k in info["launches"][impl])
+                       for info in infos for k in info["launches"][impl]
+                       if k != "ransac")
+        # B5 once a view over the ranks, less the views without a
+        # trueweak region of 3 reliable points (at this size every view
+        # has none, so B5 launches nothing here).
+        launched &= sum(info["launches"][impl]["ransac"]
+                        + info["views_without_regions"][impl]
+                        for info in infos) == SHARDED_SMALL_VIEWS
         r["kernels_launched_by_every_rank"] = launched
         ok &= (launched and r["depths_bit_equal"] and r["normals_bit_equal"]
                and r["points_world1"] == r["points_world2"])
@@ -1282,7 +1376,8 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
                     after_views=lambda: launches.update(read_launches()))
     print(f"bench (phase 10a): {json.dumps(res)}", flush=True)
     expect = {"ncc": views * evaluations, "warp": views * builds,
-              "direct": 0, "wmf": views * WMF_PASSES}
+              "direct": 0, "wmf": views * WMF_PASSES,
+              "ransac": b5_expected(views)}
     bench_s = time.perf_counter() - t_phase
     info = {"seconds": bench_s, "views": views, "launches": launches,
             "expected": expect, "acc2_weak_final": res["acc2_weak_final"],
@@ -1320,9 +1415,9 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
         raise SystemExit(f"sampler A/B below its limits: {ab}")
     if ab_launches != {
             "direct": {"ncc": 0, "warp": 0, "direct": runs * evaluations,
-                       "wmf": 0},
+                       "wmf": 0, "ransac": 0},
             "svolume": {"ncc": runs * evaluations, "warp": runs * builds,
-                        "direct": 0, "wmf": 0}}:
+                        "direct": 0, "wmf": 0, "ransac": 0}}:
         raise SystemExit(f"sampler A/B launches {ab_launches}")
 
     t = time.perf_counter()
@@ -1419,9 +1514,10 @@ def main() -> int:
             raise SystemExit(f"B3 disagrees with its plain version at "
                              f"{sh}")
     main_res = run_main_path(scene_gt, root, dev)
-    wmf_calls = kt.wmf_view_inputs(scene, AlgorithmParams(), dev)
-    b4_shapes, b4_worst = check_b4(wmf_calls)
-    del wmf_calls
+    calls = kt.view_inputs(scene, AlgorithmParams(), dev)
+    b4_shapes, b4_worst = check_b4(calls["wmf"])
+    b5_shapes, b5_worst = check_b5(calls["ransac"])
+    del calls
     torch.cuda.empty_cache()
     plan = kt.launch_plan(scene, params)
     evaluations = sum(p["propagation"] + p["refinement"] + p["init"]
@@ -1429,7 +1525,8 @@ def main() -> int:
     builds = sum(p["builds"] for p in plan)
     print(f"launch plan: {json.dumps(plan)}", flush=True)
     if main_res["launches"] != {"ncc": evaluations, "warp": builds,
-                                "direct": 0, "wmf": WMF_PASSES}:
+                                "direct": 0, "wmf": WMF_PASSES,
+                                "ransac": 1}:
         raise SystemExit(f"launches {main_res['launches']} are not one per "
                          f"cost evaluation ({evaluations}) and one per "
                          f"volume ({builds})")
@@ -1473,6 +1570,7 @@ def main() -> int:
     # B4's passes take the same time within a few percent; the first is
     # the widest marking pass.
     head_b4 = {**b4_shapes[0], "library_ms": None}
+    head_b5 = {**b5_shapes[0], "library_ms": None}
     head_b3 = next(sh for sh in b3_shapes if sh["level"] == 1
                    and sh["C"] == 1 and sh["field"] == "smooth"
                    and sh["n_best"] == 1 and sh["channels"] == 1)
@@ -1517,6 +1615,18 @@ def main() -> int:
          "max_abs_err": b4_worst,
          **{k: head_b4[k] for k in keys}, "shapes": b4_shapes,
          "launches_by_shape": main_res["launches_by_shape"]["wmf"]},
+        {"name": "ransac_regions", "route": "cuda",
+         "source": "tsar_mvs_tpu_torch/csrc/ransac.cu",
+         "replaces": "tsar_mvs_tpu/models/ransac.py:63 (XLA; "
+                     "_plane_from_triplet :37, _count_inliers :51, scans "
+                     ":112 and :137; the region loop of "
+                     "tsar_mvs_tpu/models/tsar.py:89)",
+         "launches": main_res["launches"]["ransac"],
+         "max_abs_err": b5_worst,
+         **{k: head_b5[k] for k in keys},
+         "ceiling_ms": head_b5["ceiling_ms"],
+         "chain_ms": head_b5["chain_ms"], "shapes": b5_shapes,
+         "launches_by_shape": main_res["launches_by_shape"]["ransac"]},
     ]
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,8 @@ SIGNATURES = {
     "tsar_wmf_median": [_P, _P, _P, _P, _I, _I, ctypes.POINTER(_I),
                         ctypes.POINTER(_F), _I, _F, _P, _P, _P, _P, _P, _P,
                         _P],
+    "tsar_ransac_regions": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                            _F, _F, _F, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -149,7 +151,8 @@ def kernel_resources() -> list[str]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel"
-                          r"|direct_multiview_kernel|wmf_median_kernel)"
+                          r"|direct_multiview_kernel|wmf_median_kernel"
+                          r"|ransac_regions_kernel)"
                           r"(\w*)", m.group(1))
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \

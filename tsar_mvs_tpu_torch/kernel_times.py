@@ -11,6 +11,8 @@ the same grids and candidate counts as B1's.
         [--before <older checkout>/tsar_mvs_tpu_torch/ops/wmf.py]
     python -m tsar_mvs_tpu_torch.kernel_times b4-parts <scene_dir>
         [--json OUT]
+    python -m tsar_mvs_tpu_torch.kernel_times b5 <scene_dir> [--json OUT]
+        [--before <older checkout's root>]
 
 `render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
 pair.txt) and view 0's ground truth (`gt_view0.npz`) once (one spawned
@@ -28,7 +30,13 @@ row-chunked `_median_plane_chunked` of its `ops/wmf.py`: only a checkout
 from before B4 has that function (later ones run B4), so the option
 serves only to compare against such a checkout. `b4-parts` times B4 at
 two of those passes as built and with each of its parts taken out
-(`B4_PARTS`): what each part costs.
+(`B4_PARTS`): what each part costs. `b5` times kernel B5 (the region
+RANSAC of a view) on the regions `process_view` gives it for view 0
+(`recording_ransac_inputs`), beside its bound, its ceiling, the latency
+of its dependent chain (`chain_inputs`) and its plain version, and the
+`ransac` stage (`fit_region_planes`); with `--before` that stage as an
+older checkout runs it (its `models/tsar.py` and `models/ransac.py`,
+`load_before_tsar`), alternated with this one's in one process.
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -113,6 +121,8 @@ B3_FLOPS_PER_SAMPLE_VIEWWISE = 21
 B4_FLOPS_PER_OFFSET = 4 + 1
 B4_MEDIANS = 4
 B4_BYTES_PER_PIXEL = 4 + 4 + 12 + 1 + 12 + 4 + 8 + 8
+# Hypotheses a RANSAC round (models/ransac.py RANSAC_ROUND).
+RANSAC_HYPOTHESES = 1000
 # Windows (box_hsize, box_vsize; stride 2) of `time_b1_windows`: the
 # default between two that take kernel B1's generic loop.
 WINDOWS = ((9, 9), (11, 11), (13, 13))
@@ -1090,18 +1100,6 @@ def time_b4(calls: list, params, before=None) -> list[dict]:
     return out
 
 
-def wmf_view_inputs(scene, params, dev) -> list:
-    """The inputs of view 0's WMF passes as `process_view` with `params`
-    gives them (one run, its artifacts in a temporary directory)."""
-    import tempfile
-    from tsar_mvs_tpu_torch import pipeline
-    calls: list = []
-    with tempfile.TemporaryDirectory() as tmp, recording_wmf_inputs(calls):
-        pipeline.process_view(scene, 0, params, out_dir=Path(tmp),
-                              device=dev)
-    return calls
-
-
 def load_wmf_before(path: str):
     """An older checkout's `ops/wmf.py` as a module of its own (its
     imports resolve to this package). Only a checkout from before B4 has
@@ -1125,7 +1123,7 @@ def time_b4_all(scene, dev, before: str | None) -> dict:
     from tsar_mvs_tpu_torch.ops import cuda_wmf
     params = AlgorithmParams()
     cuda_wmf.LAUNCHES = 0
-    calls = wmf_view_inputs(scene, params, dev)
+    calls = view_inputs(scene, params, dev)["wmf"]
     torch.cuda.synchronize()
     res = {"launches_a_view": cuda_wmf.LAUNCHES,
            "passes": time_b4(calls, params, before and load_wmf_before(
@@ -1222,6 +1220,286 @@ def time_b4_parts(calls: list, params, repeats: int = 2) -> dict:
     return out
 
 
+# Float operations of B5's function, whatever computes it: a residual
+# |((x a + y b) + z c) + d| < thr is 3 multiplies, 3 adds, the absolute
+# value and the compare; a hypothesis's plane 30 (two differences, the
+# cross product, its norm and test, three divisions, the offset); an
+# annealing candidate 15 (the add, the norm, four divisions). Bytes: the
+# points (12 a point), the triplets (12 a hypothesis), the perturbations
+# (64 a step of 4) and 12 a region of inputs read, 24 a region written.
+B5_FLOPS_PER_RESIDUAL = 8
+B5_FLOPS_PER_HYPOTHESIS = 30
+B5_FLOPS_PER_CANDIDATE = 15
+
+
+def b5_flops(n, rounds: int, anneal_rounds: int) -> int:
+    """Float operations of B5 on regions of n points each: per region
+    (rounds x 1001 + 4 anneal_rounds) n residuals (each round's 1000
+    hypotheses and its threshold probe, each annealing step's candidate),
+    the hypotheses' planes and the candidates."""
+    hyp = RANSAC_HYPOTHESES
+    per_point = (rounds * (hyp + 1) + 4 * anneal_rounds) \
+        * B5_FLOPS_PER_RESIDUAL
+    return sum(int(m) * per_point + rounds * hyp * B5_FLOPS_PER_HYPOTHESIS
+               + 4 * anneal_rounds * B5_FLOPS_PER_CANDIDATE for m in n)
+
+
+def b5_bound(n, rounds: int, anneal_rounds: int) -> dict:
+    """B5's bound on regions of n points: the larger of its bytes over
+    3.35 TB/s and its operations (b5_flops) over 67 TFLOP/s, and its
+    ceiling, the operations at half that rate (`ceiling_ms`: every
+    operation counted is one rounded add or multiply)."""
+    R = len(n)
+    nbytes = (12 * int(sum(n)) + 12 * R * rounds * RANSAC_HYPOTHESES
+              + 64 * R * anneal_rounds + 8 * (R + 1) + 12 * R + 24 * R)
+    flops = b5_flops(n, rounds, anneal_rounds)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": t_bytes,
+            "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ceiling_ms": max(t_bytes, 2.0 * t_ops)}
+
+
+@contextlib.contextmanager
+def recording_ransac_inputs(calls: list, fits: list | None = None):
+    """While open, every `ransac.ransac_regions` call (one a view) appends
+    its RansacInputs to `calls` (tensors cloned) and, with `fits`, every
+    `tsar.fit_region_planes` call its arguments after the generator
+    (weak, disp cloned, reliable copied, cams, params); both then run as
+    before."""
+    from tsar_mvs_tpu_torch.models import ransac, tsar
+    inner, inner_fit = ransac.ransac_regions, tsar.fit_region_planes
+
+    def record(inp):
+        calls.append(ransac.RansacInputs(*(
+            t.clone() if hasattr(t, "clone") else t for t in inp)))
+        return inner(inp)
+
+    def record_fit(generator, weak, disp, reliable, cams, params):
+        fits.append((weak, disp.clone(), reliable.copy(), cams, params))
+        return inner_fit(generator, weak, disp, reliable, cams, params)
+
+    ransac.ransac_regions = record
+    if fits is not None:
+        tsar.fit_region_planes = record_fit
+    try:
+        yield calls
+    finally:
+        ransac.ransac_regions = inner
+        tsar.fit_region_planes = inner_fit
+
+
+def view_inputs(scene, params, dev) -> dict:
+    """The inputs of view 0's WMF passes ("wmf"), of its RANSAC call
+    ("ransac", RansacInputs) and of its fit_region_planes ("fit") as
+    `process_view` with `params` gives them (one run, its artifacts in a
+    temporary directory)."""
+    import tempfile
+    from tsar_mvs_tpu_torch import pipeline
+    calls: dict = {"wmf": [], "ransac": [], "fit": []}
+    with tempfile.TemporaryDirectory() as tmp, \
+            recording_wmf_inputs(calls["wmf"]), \
+            recording_ransac_inputs(calls["ransac"], calls["fit"]):
+        pipeline.process_view(scene, 0, params, out_dir=Path(tmp),
+                              device=dev)
+    return calls
+
+
+def region_sizes(inp) -> list[int]:
+    """The point count of each region of a RansacInputs."""
+    off = inp.offsets.tolist()
+    return [b - a for a, b in zip(off[:-1], off[1:])]
+
+
+def b5_agreement(mk, mp) -> dict:
+    """Largest |delta| of B5's outputs (plane, count, threshold) against
+    the plain version's on their int32 views, and their largest as
+    "max_abs_err"."""
+    import torch
+    out = {}
+    for name, a, b in zip(("plane", "count", "threshold"), mk, mp):
+        ai = a.contiguous().view(torch.int32).to(torch.int64)
+        bi = b.contiguous().view(torch.int32).to(torch.int64)
+        out[name] = int((ai - bi).abs().max())
+    out["max_abs_err"] = max(out.values())
+    return out
+
+
+# The stress inputs of B5 (`ransac_cases`).
+RANSAC_CASES = ("three", "equal", "collinear", "inf", "ties", "thr_max",
+                "plane")
+
+
+def ransac_cases(n_big: int, rounds: int, anneal_rounds: int, dev,
+                 thr_max: float = 0.003, thr_step: float = 0.0001,
+                 seed: int = 0) -> dict:
+    """Regions that stress B5, each as (points (N, 3), idx, deltas, thr0)
+    on `dev`, made with numpy from `seed` (the same on every device):
+    "three", a triangle (N = 3); "equal", 64 equal points (every triplet
+    degenerate); "collinear", 64 points on a line whose differences are
+    exact (every triplet degenerate); "inf", 500 points on a plane, one
+    with an infinite coordinate; "ties", 12 points on three parallel
+    planes, 4 a plane (counts tied across hypotheses); "thr_max", 2,000
+    points scattered in a box with the threshold starting half the
+    rounds' steps below thr_max (it climbs there and stops); "plane",
+    n_big points on a plane with 30% outliers."""
+    import numpy as np
+    import torch
+    from tsar_mvs_tpu_torch.models import ransac
+    rng = np.random.default_rng(seed)
+
+    def on_plane(m, noise):
+        xy = rng.uniform(-1.0, 1.0, (m, 2))
+        z = 3.0 + 0.2 * xy[:, 0] - 0.1 * xy[:, 1] \
+            + noise * rng.standard_normal(m)
+        return np.column_stack([xy, z])
+
+    t = np.arange(64.0)
+    grid = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
+    plane = on_plane(n_big, 1e-4)
+    out = rng.random(n_big) < 0.3
+    plane[out] = rng.uniform(-1.0, 4.0, (int(out.sum()), 3))
+    inf = on_plane(500, 1e-4)
+    inf[7, 0] = np.inf
+    pts = {"three": np.array([[0.0, 0.0, 1.0], [1.0, 0.0, 1.2],
+                              [0.0, 1.0, 0.9]]),
+           "equal": np.tile([0.3, -0.2, 2.0], (64, 1)),
+           "collinear": np.column_stack([0.25 * t, 0.5 * t,
+                                         0.75 * t + 1.0]),
+           "inf": inf,
+           "ties": np.concatenate([np.column_stack([grid, np.full(4, z)])
+                                   for z in (1.0, 2.0, 3.0)]),
+           "thr_max": rng.uniform(-1.0, 1.0, (2000, 3)),
+           "plane": plane}
+    cases = {}
+    for name in RANSAC_CASES:
+        p = pts[name].astype(np.float32)
+        idx = rng.integers(0, len(p), (rounds, RANSAC_HYPOTHESES, 3))
+        u = rng.random((anneal_rounds, 4, 4), dtype=np.float32)
+        thr0 = (thr_max - (rounds // 2 - 0.5) * thr_step
+                if name == "thr_max" else 1e-3 if name == "ties"
+                else ransac.initial_threshold(len(p)))
+        cases[name] = (torch.as_tensor(p, device=dev),
+                       torch.as_tensor(idx.astype(np.int32), device=dev),
+                       ransac.deltas_from_uniform(
+                           torch.as_tensor(u, device=dev)), thr0)
+    return cases
+
+
+def pack_cases(cases: dict, names, thr_max: float = 0.003,
+               thr_step: float = 0.0001):
+    """RansacInputs of the regions `names` of `ransac_cases`, in order."""
+    from tsar_mvs_tpu_torch.models import ransac
+    cols = list(zip(*(cases[n] for n in names)))
+    return ransac.pack_regions(*cols, thr_max, thr_step)
+
+
+def chain_inputs(inp):
+    """A RansacInputs of one region of 3 points with `inp`'s rounds and
+    annealing steps: B5's time on it is the latency of its dependent
+    steps with almost no work."""
+    import torch
+    from tsar_mvs_tpu_torch.models import ransac
+    dev = inp.points.device
+    rounds, anneal = inp.idx.shape[1], inp.deltas.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx, deltas = ransac.draw_region(gen, 3, rounds * RANSAC_HYPOTHESES,
+                                     anneal)
+    return ransac.pack_regions([inp.points[:3]], [idx], [deltas],
+                               [float(inp.thr0[0])], inp.thr_max,
+                               inp.thr_step)
+
+
+def time_b5(calls: list) -> list[dict]:
+    """Kernel B5 on each recorded RansacInputs: its ms (CUDA events, a
+    mean of 10 after a warm-up), launches in one call, agreement with the
+    plain version (b5_agreement), the plain version's ms (one call), the
+    chain's ms (B5 on `chain_inputs`), the regions' sizes and the bound."""
+    from tsar_mvs_tpu_torch.models import ransac
+    from tsar_mvs_tpu_torch.ops import cuda_ransac
+    out = []
+    for inp in calls:
+        n = region_sizes(inp)
+        n0 = cuda_ransac.LAUNCHES
+        mk = ransac.ransac_regions(inp)
+        launches = cuda_ransac.LAUNCHES - n0
+        mp = ransac.ransac_regions_plain(inp)
+        rounds, anneal = inp.idx.shape[1], inp.deltas.shape[1]
+        res = {"regions": len(n), "points": n, "rounds": rounds,
+               "anneal_rounds": anneal, "launches_a_call": launches,
+               **b5_agreement(mk, mp)}
+        res["ms"] = time_ms(lambda: ransac.ransac_regions(inp), 10)
+        res["plain_ms"] = time_ms(lambda: ransac.ransac_regions_plain(inp),
+                                  1, warmup=0)
+        chain = chain_inputs(inp)
+        res["chain_ms"] = time_ms(lambda: ransac.ransac_regions(chain), 10)
+        res.update(b5_bound(n, rounds, anneal))
+        print(f"B5 call: {json.dumps(res)}", flush=True)
+        out.append(res)
+    return out
+
+
+def load_before_tsar(checkout: str):
+    """An older checkout's `models/tsar.py` with its own `models/ransac.py`
+    (modules of their own; their other imports resolve to this package):
+    `fit_region_planes` as that checkout runs it."""
+    import importlib.util
+    mods = {}
+    for name in ("ransac", "tsar"):
+        path = Path(checkout) / "tsar_mvs_tpu_torch" / "models" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"{name}_before",
+                                                      path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    mods["tsar"].ransac = mods["ransac"]
+    return mods["tsar"]
+
+
+def time_ransac_stage(fits: list, before: str | None,
+                      seed: int = 0) -> dict:
+    """The `ransac` stage (fit_region_planes: masks, draws, the fit and
+    the polish) on each recorded view's arguments, host seconds after a
+    synchronisation, with a generator seeded `seed` each run; with
+    `before` (an older checkout's root) that checkout's
+    fit_region_planes too, alternated: before, this, this, before."""
+    import torch
+    from tsar_mvs_tpu_torch.models import tsar
+    runs = [("this", tsar)]
+    if before is not None:
+        old = load_before_tsar(before)
+        runs = [("before", old), ("this", tsar), ("this", tsar),
+                ("before", old)]
+    out: dict = {name: [] for name, _ in runs}
+    for name, mod in runs:
+        for args in fits:
+            gen = torch.Generator(device=args[1].device).manual_seed(seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.fit_region_planes(gen, *args)
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    print(f"ransac stage seconds: {json.dumps(out)}", flush=True)
+    return out
+
+
+def time_b5_all(scene, dev, before: str | None) -> dict:
+    """B5 on view 0's recorded regions (time_b5), its registers and
+    spills, launches a view, and the ransac stage beside `before`'s."""
+    import torch
+    from tsar_mvs_tpu_torch import _build
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.ops import cuda_ransac
+    cuda_ransac.LAUNCHES = 0
+    calls = view_inputs(scene, AlgorithmParams(), dev)
+    torch.cuda.synchronize()
+    return {"launches_a_view": cuda_ransac.LAUNCHES,
+            "calls": time_b5(calls["ransac"]),
+            "stage": time_ransac_stage(calls["fit"], before),
+            "resources": [r for r in _build.kernel_resources()
+                          if r.startswith("ransac")]}
+
+
 def time_all(scene, gt: dict, dev) -> dict:
     """Every B1, B2 and B3 shape, level by level (one level's volumes live
     at a time), B1's windows on the last level, then the PatchMatch
@@ -1247,12 +1525,14 @@ def time_all(scene, gt: dict, dev) -> dict:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
     p.add_argument("command", choices=("render", "time", "b3", "b4",
-                                        "b4-parts"))
+                                        "b4-parts", "b5"))
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
     p.add_argument("--before", default=None,
                    help="b4: the ops/wmf.py of a checkout from before B4 "
-                        "(its plain WMF) to time beside")
+                        "(its plain WMF) to time beside; b5: the root of "
+                        "an older checkout, whose ransac stage is timed "
+                        "beside")
     ns = p.parse_args(argv)
     scene_dir = Path(ns.scene_dir)
     if ns.command == "render":
@@ -1272,11 +1552,13 @@ def main(argv: list[str] | None = None) -> int:
         gt = {"depth": z["depth"], "normal_world": z["normal_world"]}
     if ns.command == "b4":
         res = time_b4_all(scene, dev, ns.before)
+    elif ns.command == "b5":
+        res = time_b5_all(scene, dev, ns.before)
     elif ns.command == "b4-parts":
         from tsar_mvs_tpu_torch.config import AlgorithmParams
         params = AlgorithmParams()
-        res = {"parts": time_b4_parts(wmf_view_inputs(scene, params, dev),
-                                      params)}
+        res = {"parts": time_b4_parts(
+            view_inputs(scene, params, dev)["wmf"], params)}
     else:
         res = (time_all if ns.command == "time" else time_b3_all)(scene, gt,
                                                                   dev)

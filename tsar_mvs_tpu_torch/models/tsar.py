@@ -3,7 +3,8 @@
 
 1. confidence + left-right check (reverse cost at each pixel's best view)
 2. coarse-to-fine WMF outlier marking
-3. per-region RANSAC plane fit (host loop over the trueweak regions)
+3. region RANSAC plane fit: every trueweak region of the view in one
+   call (kernel B5 on the card), then one batched polish
 4. border-consistency veto of implausible region planes
 5. textureless fill
 6. fine WMF hole filling
@@ -24,6 +25,11 @@ from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.models import ransac
 from tsar_mvs_tpu_torch.models.patchmatch import PlaneState, depth_map
 from tsar_mvs_tpu_torch.ops import ncc, wmf
+
+
+# Views whose RANSAC stage found no trueweak region of 3 reliable points,
+# so kernel B5 did not launch for them (read by chip_smoke.py).
+VIEWS_WITHOUT_REGIONS = 0
 
 
 @dataclass
@@ -75,7 +81,11 @@ def fit_region_planes(generator: torch.Generator, weak: WeakTexture,
     """RANSAC plane per trueweak region over its reliable pixels' 3-D
     points (rebased ref frame); (M, 4) with zero rows for other regions.
     Regions above ransac_max_points reliable pixels are subsampled
-    uniformly."""
+    uniformly. The host builds each region's mask and draws its random
+    numbers; then one call fits every region (kernel B5 on the card) and
+    one batched polish follows. A view without a region of 3 reliable
+    points fits nothing (VIEWS_WITHOUT_REGIONS counts it)."""
+    global VIEWS_WITHOUT_REGIONS
     from scipy import ndimage
     H, W = disp.shape
     dev = disp.device
@@ -83,6 +93,7 @@ def fit_region_planes(generator: torch.Generator, weak: WeakTexture,
     pts_all = ransac.region_points(depth, geo.pixel_rays(cams, H, W))
     labels = weak.labels_full
     planes = np.zeros((weak.num_regions, 4), np.float32)
+    regions, pts, idx, deltas, thr0 = [], [], [], [], []
     for region in np.nonzero(weak.text == -1)[0]:
         rmask = labels == region
         if params.ransac_ring > 0:
@@ -96,16 +107,23 @@ def fit_region_planes(generator: torch.Generator, weak: WeakTexture,
             keep = torch.randperm(ys.size, generator=generator,
                                   device=dev)[:params.ransac_max_points]
             sel = sel[keep]
-        pts = pts_all.reshape(-1, 3)[sel]
-        fit = ransac.ransac_plane(
-            generator, pts,
-            ransac.initial_threshold(int(weak.size[region]),
-                                     params.ransac_thr_base),
-            iters=params.ransac_iters,
-            anneal_rounds=params.ransac_anneal_rounds,
-            thr_max=params.ransac_thr_max,
-            thr_step=params.ransac_thr_step)
-        planes[region] = fit.plane.cpu().numpy()
+        p = pts_all.reshape(-1, 3)[sel]
+        i, dl = ransac.draw_region(generator, p.shape[0],
+                                   params.ransac_iters,
+                                   params.ransac_anneal_rounds)
+        regions.append(region)
+        pts.append(p)
+        idx.append(i)
+        deltas.append(dl)
+        thr0.append(ransac.initial_threshold(int(weak.size[region]),
+                                             params.ransac_thr_base))
+    if not regions:
+        VIEWS_WITHOUT_REGIONS += 1
+        return planes
+    fit = ransac.fit_regions(ransac.pack_regions(
+        pts, idx, deltas, thr0, params.ransac_thr_max,
+        params.ransac_thr_step))
+    planes[regions] = fit.plane.cpu().numpy()
     return planes
 
 
