@@ -47,15 +47,17 @@ line (the 2K scene renders in one spawned process per view):
    equal on its int32 view;
    (c) kernel B5 (the region RANSAC of a view) against its plain version
    on the RANSAC inputs recorded in the same second run (the view's
-   regions, their sizes printed, their points and draws): one launch,
-   timed beside its bound, its ceiling, its dependent chain (B5 on 3
-   points) and its plain version; and on the stress inputs of
-   kernel_times.ransac_cases at the view's rounds (3 points, 64 equal
-   points, 64 collinear points, a point with an infinite coordinate,
-   counts tied across hypotheses, a threshold that climbs to thr_max,
-   50,000 points on a plane with 30% outliers), each alone and all in
-   one launch; planes and thresholds equal on their int32 views, counts
-   equal;
+   regions, their sizes printed, their points and draws): one counted
+   call, timed beside its bound, its ceiling, its dependent chain (B5 on
+   3 points), its rounds and annealing apart and its plain version; and
+   on the stress inputs of kernel_times.ransac_cases at the view's
+   rounds (3 points, 64 equal points, 64 collinear points, a point with
+   an infinite coordinate, counts tied across hypotheses, a threshold
+   that climbs to thr_max, 50,000 points on a plane with 30% outliers,
+   42 regions of 3 to 25,000 points, a region above a cluster's shared
+   memory), each alone and all in one call, and on 2,000 points whose
+   annealing steps end on a part pass (alone); planes and thresholds
+   equal on their int32 views, counts equal;
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
@@ -480,10 +482,11 @@ def check_b4(calls: list) -> tuple[list, int]:
 def check_b5(calls: list) -> tuple[list, int]:
     """Phase 5(c): kernel B5 against its plain version on the main path's
     RANSAC inputs `calls` (one RansacInputs: view 0's regions, their
-    points and draws; kernel_times.time_b5: one launch a call, timed
-    beside its bound, its chain and its plain version) and on the stress
-    inputs of kernel_times.ransac_cases at the view's rounds and
-    annealing rounds, each alone and all in one launch: planes and
+    points and draws; kernel_times.time_b5: one counted call, timed
+    beside its bound, its chain, its rounds and annealing apart and its
+    plain version) and on the stress inputs of kernel_times.ransac_cases
+    at the view's rounds and annealing rounds (kernel_times.case_packs:
+    each alone, all in one call, and "odd_steps" alone): planes and
     thresholds equal on their int32 views, counts equal. Prints one line
     for the cases; returns the rows of `time_b5` and the largest
     |delta|."""
@@ -500,7 +503,7 @@ def check_b5(calls: list) -> tuple[list, int]:
     rounds, anneal = calls[0].idx.shape[1], calls[0].deltas.shape[1]
     cases = kt.ransac_cases(50000, rounds, anneal, calls[0].points.device)
     res = {}
-    for names in [(c,) for c in kt.RANSAC_CASES] + [kt.RANSAC_CASES]:
+    for names in kt.case_packs():
         inp = kt.pack_cases(cases, names)
         before = cuda_ransac.LAUNCHES
         mk = ransac.ransac_regions(inp)
@@ -1625,7 +1628,9 @@ def main() -> int:
          "max_abs_err": b5_worst,
          **{k: head_b5[k] for k in keys},
          "ceiling_ms": head_b5["ceiling_ms"],
-         "chain_ms": head_b5["chain_ms"], "shapes": b5_shapes,
+         "chain_ms": head_b5["chain_ms"],
+         "rounds_ms": head_b5["rounds_ms"],
+         "anneal_ms": head_b5["anneal_ms"], "shapes": b5_shapes,
          "launches_by_shape": main_res["launches_by_shape"]["ransac"]},
     ]
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -20,6 +20,7 @@ Tolerances:
   (int32 views of planes and thresholds, counts equal).
 """
 
+import itertools
 import re
 from pathlib import Path
 
@@ -40,8 +41,8 @@ torch.set_num_threads(2)
 SOURCE = Path(cuda_ransac.__file__).resolve().parents[1] / "csrc" / \
     "ransac.cu"
 # The stress inputs cut to test size: the large plane's points, rounds of
-# 1000 hypotheses and annealing rounds.
-CUT = dict(n_big=3000, rounds=2, anneal_rounds=40)
+# 1000 hypotheses, annealing rounds and the points of "big".
+CUT = dict(n_big=3000, rounds=2, anneal_rounds=40, n_over=4000)
 F = np.float32
 
 
@@ -139,8 +140,8 @@ def test_triplet_planes_and_counts_match_jax():
 # --- numpy emulation of kernel B5's order ---------------------------------
 
 def _emulated_plane(p1, p2, p3):
-    """A thread's plane (csrc/ransac.cu plane_from_triplet), vectorised
-    over the threads; every step a float32 operation of its own."""
+    """A hypothesis's plane (csrc/ransac.cu plane_from_triplet), vectorised
+    over the hypotheses; every step a float32 operation of its own."""
     with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
         e = (p2 - p1).astype(F)
         g = (p3 - p1).astype(F)
@@ -156,10 +157,10 @@ def _emulated_plane(p1, p2, p3):
 
 
 def _emulated_count(P, pl, thr) -> np.ndarray:
-    """Counts of planes pl (B, 4) over P (N, 3) at thr: the block's
-    threads split the points, an integer sum (its order is immaterial)."""
+    """Counts of planes pl (B, 4) over P (N, 3) at thr, an integer sum
+    (its order is immaterial) over tiles of 2048 points."""
     out = np.zeros(len(pl), np.int64)
-    for s in range(0, len(P), 2048):                # the kernel's tiles
+    for s in range(0, len(P), 2048):
         q = P[s:s + 2048]
         with np.errstate(invalid="ignore", over="ignore"):
             r = np.abs(((q[None, :, 0] * pl[:, None, 0]
@@ -169,56 +170,101 @@ def _emulated_count(P, pl, thr) -> np.ndarray:
     return out
 
 
-def emulate_b5(inp: ransac.RansacInputs):
-    """Kernel B5 in numpy float32, in its order: per region a block, per
-    round a thread per hypothesis and the argmax of the 32-bit keys
-    (count + 1) << 10 | (1023 - thread), then the threshold rule; then the
-    annealing's candidates and accepts."""
+def _emulated_candidate(base, dl):
+    """An annealing candidate (csrc/ransac.cu candidate): base + dl over
+    sqrt(((a a + b b) + c c) + eps), each step rounded to float32."""
+    cand = (base + dl).astype(F)
+    nrm = np.sqrt(F(F(F(cand[0] * cand[0]) + F(cand[1] * cand[1]))
+                    + F(cand[2] * cand[2])) + F(ransac.EPS))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return (cand / nrm).astype(F)
+
+
+def _emulated_tree(p, dl, s: int, steps: int, lookahead: int):
+    """The 2^L - 1 candidates of the pass starting at step s from plane p
+    (the kernel's lanes): node (level j, accept mask m of the j steps
+    before) is 2^j - 1 + m, built with step s + j's perturbation (the last
+    step's past the end) from p (m = 0) or from the candidate of the last
+    accepted step."""
+    nodes = np.zeros(((1 << lookahead) - 1, 4), F)
+    for node in range(len(nodes)):
+        lev = (node + 1).bit_length() - 1
+        msk = node + 1 - (1 << lev)
+        hi = msk.bit_length() - 1
+        base = nodes[(1 << hi) - 1 + (msk & ((1 << hi) - 1))] if msk else p
+        nodes[node] = _emulated_candidate(base, dl[min(s + lev, steps - 1)])
+    return nodes
+
+
+def emulate_b5(inp: ransac.RansacInputs, sms: int = 132,
+               cluster: int = cuda_ransac.CLUSTER,
+               lookahead: int = cuda_ransac.LOOKAHEAD):
+    """Kernel B5 in numpy float32, in its order. Each round: every
+    region's 1000 planes, the partial counts of each chunk of the work
+    plan (cuda_ransac.round_chunks, on `sms` SMs) added up, then per
+    region the decide step: the argmax of the 32-bit keys (count + 1) <<
+    10 | (1023 - h), the >= accept, the threshold rule with its probe.
+    Then the annealing per unit of cuda_ransac.anneal_units (`cluster`
+    blocks a cluster), `lookahead` steps a pass: the tree's 2^L - 1
+    candidates, each block's partial counts over its slice of the region
+    added up, and the pass's accepts resolved in order."""
     pts = inp.points.numpy()
     off = inp.offsets.tolist()
+    n = np.diff(off)
     idx, deltas = inp.idx.numpy(), inp.deltas.numpy()
     R, rounds = idx.shape[:2]
-    planes = np.zeros((R, 4), F)
-    counts = np.zeros(R, np.int32)
-    thrs = np.zeros(R, F)
+    steps = 4 * deltas.shape[1]
     thr_max, thr_step = F(inp.thr_max), F(inp.thr_step)
-    for r in range(R):
-        P = pts[off[r]:off[r + 1]]
-        tot, gain = F(inp.total[r]), F(inp.gain[r])
-        pl = np.array([0.0, 0.0, 1.0, -1.0], F)
-        count, thr = 0, F(inp.thr0[r])
-        for k in range(rounds):
-            ix = idx[r, k]
-            hp = _emulated_plane(P[ix[:, 0]], P[ix[:, 1]], P[ix[:, 2]])
-            c = _emulated_count(P, hp, thr)
-            t = np.arange(len(hp))
-            key = ((c + 1) << 10) | (1023 - t)
+    planes = np.tile(np.array([0.0, 0.0, 1.0, -1.0], F), (R, 1))
+    counts = np.zeros(R, np.int64)
+    thrs = inp.thr0.numpy().astype(F)
+
+    def region(r):
+        return pts[off[r]:off[r + 1]]
+    for k in range(rounds):
+        hp = [_emulated_plane(*(region(r)[idx[r, k, :, i]]
+                                for i in range(3))) for r in range(R)]
+        c = np.zeros((R, len(hp[0])), np.int64)
+        for r, s, e in cuda_ransac.round_chunks(n, sms):
+            while s < e:
+                end = min(e, off[r + 1])
+                c[r] += _emulated_count(pts[s:end], hp[r], thrs[r])
+                s, r = end, r + 1
+        for r in range(R):
+            key = ((c[r] + 1) << 10) | (1023 - np.arange(len(c[r])))
             best = int(key.max())
             bi, bc = 1023 - (best & 1023), (best >> 10) - 1
-            if bc >= count:
-                pl, count = hp[bi].copy(), bc
-            grow_small = (F(count) / tot < F(ransac.RATIO)) and \
-                thr < thr_max
-            t2 = F(thr + thr_step)
-            count2 = int(_emulated_count(P, pl[None], t2)[0])
-            grow_big = (not grow_small) and F(count2) > F(F(count) + gain)
+            if bc >= counts[r]:
+                planes[r], counts[r] = hp[r][bi], bc
+            grow_small = (F(counts[r]) / F(inp.total[r]) < F(ransac.RATIO)
+                          and thrs[r] < thr_max)
+            t2 = F(thrs[r] + thr_step)
+            count2 = int(_emulated_count(region(r), planes[r][None], t2)[0])
+            grow_big = (not grow_small) and \
+                F(count2) > F(F(counts[r]) + F(inp.gain[r]))
             if grow_small or grow_big:
-                thr = t2
+                thrs[r] = t2
             if grow_big:
-                count = count2
-        for a in range(deltas.shape[1]):
-            for s in range(4):
-                cand = (pl + deltas[r, a, s]).astype(F)
-                nrm = np.sqrt(F(F(F(cand[0] * cand[0])
-                                  + F(cand[1] * cand[1]))
-                                + F(cand[2] * cand[2])) + F(ransac.EPS))
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    cand = (cand / nrm).astype(F)
-                c = int(_emulated_count(P, cand[None], thr)[0])
-                if c >= count:
-                    pl, count = cand, c
-        planes[r], counts[r], thrs[r] = pl, count, thr
-    return planes, counts, thrs
+                counts[r] = count2
+    units, _ = cuda_ransac.anneal_units(n, cluster)
+    for r, nb in dict.fromkeys(u for u in units if u[0] >= 0):
+        P = region(r)
+        S = -(-len(P) // nb)
+        dl = deltas[r].reshape(steps, 4)
+        p, count = planes[r].copy(), int(counts[r])
+        for s in range(0, steps, lookahead):
+            nodes = _emulated_tree(p, dl, s, steps, lookahead)
+            tot = sum(_emulated_count(P[q * S:(q + 1) * S], nodes, thrs[r])
+                      for q in range(nb))
+            mask, sel = 0, -1
+            for j in range(min(lookahead, steps - s)):
+                nd = (1 << j) - 1 + mask
+                if tot[nd] >= count:
+                    count, sel, mask = int(tot[nd]), nd, mask | 1 << j
+            if sel >= 0:
+                p = nodes[sel].copy()
+        planes[r], counts[r] = p, count
+    return planes, counts.astype(np.int32), thrs
 
 
 @pytest.fixture(scope="module")
@@ -226,12 +272,34 @@ def cases():
     return kt.ransac_cases(dev="cpu", **CUT)
 
 
-@pytest.mark.parametrize("case", kt.RANSAC_CASES)
+@pytest.mark.parametrize("case", kt.RANSAC_CASES + kt.RANSAC_ALONE)
 def test_kernel_order_emulation_equals_plain(cases, case):
     """The numpy emulation of B5's order equals the plain version to the
     bit on each stress input of chip_smoke.py phase 5(c), cut in size."""
     inp = kt.pack_cases(cases, [case])
     _assert_equal_fits(emulate_b5(inp), ransac.ransac_regions_plain(inp))
+
+
+@pytest.fixture(scope="module")
+def design_packs(cases):
+    packs = {"three, plane": kt.pack_cases(cases, ["three", "plane"]),
+             "odd_steps": kt.pack_cases(cases, ["odd_steps"])}
+    return {k: (p, ransac.ransac_regions_plain(p)) for k, p in packs.items()}
+
+
+@pytest.mark.parametrize("pack", ["three, plane", "odd_steps"])
+@pytest.mark.parametrize("cluster,lookahead", list(itertools.product(
+    kt.B5_DESIGN["CLUSTER"], kt.B5_DESIGN["LOOKAHEAD"])))
+def test_every_design_emulation_equals_plain(design_packs, cluster,
+                                             lookahead, pack):
+    """Every pair of blocks a cluster and steps a pass that `kernel_times
+    b5-design` builds gives the plain version's bits, on 4 SMs' chunks: a
+    3-point region (one block) beside one large enough for a whole
+    cluster, and "odd_steps" (a part pass at the end for LOOKAHEAD 3)."""
+    inp, want = design_packs[pack]
+    if pack != "odd_steps":
+        assert max(kt.region_sizes(inp)) > cuda_ransac.CLUSTER_MIN_POINTS
+    _assert_equal_fits(emulate_b5(inp, 4, cluster, lookahead), want)
 
 
 def test_kernel_order_emulation_equals_plain_on_a_view_batch():
@@ -266,15 +334,46 @@ def test_stress_cases_do_what_they_say(cases):
                            for i in range(3)))
     c = _emulated_count(inp.points.numpy(), hp, F(inp.thr0[0]))
     assert (c == c.max()).sum() > 1
+    # Dozens of small regions beside large ones: one-block units and
+    # whole-cluster units in one launch; most points of each fitted.
+    n = kt.region_sizes(kt.pack_cases(cases, ["many"]))
+    assert len(n) == 42 and min(n) == 3 and max(n[:40]) == 2000
+    assert n[40:] == [CUT["n_big"] // 2,
+                      2 * cuda_ransac.CLUSTER_MIN_POINTS + 1]
+    units = set(cuda_ransac.anneal_units(n)[0])
+    assert (41, cuda_ransac.CLUSTER) in units and (0, 1) in units
+    fit = fits["many"][1].numpy()
+    assert (fit[np.array(n) >= 50] >= 0.6 * np.array(n)[np.array(n) >= 50]
+            ).all()
+    assert int(fits["big"][1][0]) >= 0.65 * CUT["n_over"]
+    # "big" at its default size does not fit a cluster's shared memory.
+    assert cuda_ransac.anneal_units(
+        [cuda_ransac.CLUSTER * cuda_ransac.SMEM_POINTS + 1])[1] == 0
+    # "odd_steps" has annealing rounds of its own, and ends on a part pass
+    # at another remainder than the rest wherever LOOKAHEAD allows one (a
+    # LOOKAHEAD that divides 4 never leaves one: 4 steps a round).
+    odd = cases["odd_steps"][0][2].shape[0]
+    assert odd == kt.odd_anneal_rounds(CUT["anneal_rounds"]) != \
+        CUT["anneal_rounds"]
+    for L in kt.B5_DESIGN["LOOKAHEAD"]:
+        if 4 % L:
+            assert 4 * odd % L not in (0, 4 * CUT["anneal_rounds"] % L)
+    fit = ransac.ransac_regions_plain(kt.pack_cases(cases, ["odd_steps"]))
+    assert int(fit[1][0]) >= 0.65 * 2000
 
 
 def test_batch_equals_one_region_at_a_time(cases):
     """R regions in one call equal R calls of one region, bit for bit."""
     batch = ransac.ransac_regions_plain(kt.pack_cases(cases,
                                                       kt.RANSAC_CASES))
-    for r, c in enumerate(kt.RANSAC_CASES):
-        one = ransac.ransac_regions_plain(kt.pack_cases(cases, [c]))
-        _assert_equal_fits([t[r:r + 1] for t in batch], one)
+    r = 0
+    for c in kt.RANSAC_CASES:
+        for reg in cases[c]:
+            one = ransac.ransac_regions_plain(kt.pack_cases({c: [reg]},
+                                                            [c]))
+            _assert_equal_fits([t[r:r + 1] for t in batch], one)
+            r += 1
+    assert r == batch[0].shape[0]
 
 
 def test_ransac_plane_is_one_region_of_fit_regions():
@@ -385,9 +484,94 @@ def test_python_mirror_reads_the_kernel_constants():
         ransac.RANSAC_ROUND == kt.RANSAC_HYPOTHESES == 1000
     assert const("THREADS") == cuda_ransac.THREADS
     assert cuda_ransac.THREADS >= cuda_ransac.HYPOTHESES
+    # The work plans' constants: the rounds' chunks, the annealing's
+    # cluster, lookahead, shared-memory slice and smallest cluster region.
+    for name in ("CHUNK_MIN", "CHUNK_BLOCKS_PER_SM", "CLUSTER", "LOOKAHEAD",
+                 "SMEM_POINTS", "CLUSTER_MIN_POINTS"):
+        assert const(name) == getattr(cuda_ransac, name), name
+    assert const("ROUND_THREADS") * const("PER_THREAD") >= \
+        cuda_ransac.HYPOTHESES
+    assert const("CLUSTER") <= 16 and (1 << const("LOOKAHEAD")) - 1 <= 32
+    # A slice and the block's own buffers fit 227 KB of shared memory.
+    assert cuda_ransac.SMEM_POINTS * 16 + 4096 <= 232448
+    assert cuda_ransac.CLUSTER in kt.B5_DESIGN["CLUSTER"]
+    assert cuda_ransac.LOOKAHEAD in kt.B5_DESIGN["LOOKAHEAD"]
+    assert const("ANNEAL_THREADS") in kt.B5_DESIGN["ANNEAL_THREADS"]
     # The argmax key: (count + 1) << 10 must fit 32 bits.
     assert (cuda_ransac.MAX_POINTS + 1) << 10 <= 1 << 32
     assert "tsar_ransac_regions" in _build.SIGNATURES
+    assert "tsar_ransac_cluster" in _build.SIGNATURES
+
+
+# Region sizes of views the work plans must serve: the main path's two
+# subsampled regions, hundreds of 3-point regions, the "many" mix, one
+# region above a cluster's shared memory and a lone triangle.
+PLANS = {"main path": [50000, 50000],
+         "tiny regions": [3] * 300 + [2000] * 10,
+         "many": [3, 2000, 17, 250, 999, 41, 1500, 25000, 4097],
+         "above a cluster": [cuda_ransac.CLUSTER * cuda_ransac.SMEM_POINTS
+                             + 1, 100],
+         "three": [3]}
+
+
+@pytest.mark.parametrize("name", PLANS)
+def test_round_chunks_cover_every_point_once(name):
+    """Every point of every region lies in exactly one chunk of the
+    rounds' plan; a chunk is a piece of one region or a run of whole
+    regions, never larger than the plan's size; the main path fills the
+    card with 2-4 blocks an SM, and small regions share blocks."""
+    n = PLANS[name]
+    sms = 132
+    off = np.concatenate([[0], np.cumsum(n)])
+    size = max(cuda_ransac.CHUNK_MIN, -(-int(off[-1]) //
+                                        (cuda_ransac.CHUNK_BLOCKS_PER_SM
+                                         * sms)))
+    chunks = cuda_ransac.round_chunks(n, sms)
+    seen = np.zeros(int(off[-1]), np.int64)
+    for r, s, e in chunks:
+        assert off[r] <= s < off[r + 1] and s < e and e - s <= size
+        inside = [q for q in range(len(n)) if off[q] < e and off[q + 1] > s]
+        assert inside[0] == r
+        if len(inside) > 1:        # a run of whole regions
+            assert off[r] == s and off[inside[-1] + 1] == e
+        seen[s:e] += 1
+    assert (seen == 1).all()
+    if name == "main path":
+        assert 2 * sms <= len(chunks) <= 4 * sms
+    if name == "tiny regions":             # 900 points in 4 blocks
+        assert sum(r < 300 for r, _, _ in chunks) == -(-900 // size)
+
+
+@pytest.mark.parametrize("name", PLANS)
+def test_anneal_units_cover_every_region_once(name):
+    """The annealing's plan: whole clusters of CLUSTER blocks; a region
+    above CLUSTER_MIN_POINTS takes one cluster, its ranks' slices
+    covering its points once; the others one block each; the shared
+    memory holds every slice of at most SMEM_POINTS points."""
+    n = PLANS[name]
+    C = cuda_ransac.CLUSTER
+    units, smem = cuda_ransac.anneal_units(n)
+    assert len(units) % C == 0
+    regions = []
+    for i in range(0, len(units), C):
+        group = units[i:i + C]
+        if group[0][1] == C:
+            r = group[0][0]
+            assert group == [(r, C)] * C
+            assert n[r] > cuda_ransac.CLUSTER_MIN_POINTS
+            S = -(-n[r] // C)
+            assert sum(max(0, min(n[r], (q + 1) * S) - q * S)
+                       for q in range(C)) == n[r]
+            regions.append(r)
+        else:
+            assert all(nb == 1 for _, nb in group)
+            regions += [r for r, _ in group if r >= 0]
+            assert all(n[r] <= cuda_ransac.CLUSTER_MIN_POINTS
+                       for r, _ in group if r >= 0)
+    assert sorted(regions) == list(range(len(n)))
+    slices = [-(-n[r] // nb) for r, nb in units if r >= 0]
+    assert smem <= cuda_ransac.SMEM_POINTS
+    assert all(s <= smem for s in slices if s <= cuda_ransac.SMEM_POINTS)
 
 
 def test_cpu_tensors_never_reach_the_build(cases, monkeypatch):
@@ -407,20 +591,31 @@ def test_cuda_tensor_with_a_failing_launch_raises(cases, monkeypatch):
     launch. (Tensors pose as CUDA ones and the library is a stand-in.)"""
     class Lib:
         calls = 0
+        plans = []
+
+        def tsar_ransac_cluster(self):
+            return cuda_ransac.CLUSTER
 
         def tsar_ransac_regions(self, *args):
             Lib.calls += 1
+            Lib.plans.append((args[16], args[18], args[19]))
             return 700
 
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev=None: type("P", (), {
+                            "multi_processor_count": 132}))
     monkeypatch.setattr(_build, "load_library", Lib)
     inp = kt.pack_cases(cases, ["ties", "three"])
     before = cuda_ransac.LAUNCHES
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ransac.ransac_regions(inp)
     assert Lib.calls == 1 and cuda_ransac.LAUNCHES == before
+    # The plans' sizes: one chunk for both regions, one cluster of
+    # one-block units, a slice of 12 points.
+    assert Lib.plans == [(1, cuda_ransac.CLUSTER, 12)]
     for bad in (inp._replace(points=inp.points.double()),
                 inp._replace(idx=inp.idx.long()),
                 inp._replace(idx=inp.idx + 12),
@@ -434,13 +629,13 @@ def test_cuda_tensor_with_a_failing_launch_raises(cases, monkeypatch):
 # --- kernel B5 on the card --------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("names", [(c,) for c in kt.RANSAC_CASES]
-                         + [kt.RANSAC_CASES])
+@pytest.mark.parametrize("names", kt.case_packs())
 def test_b5_kernel_matches_plain_on_card(names):
     """Kernel B5 against its plain version on the card on the stress
-    inputs (each alone and all in one launch) at the main path's rounds
-    and annealing rounds: one launch, planes and thresholds equal on their
-    int32 views, counts equal. Needs an NVIDIA GPU."""
+    inputs (each alone, RANSAC_CASES all in one call, and "odd_steps")
+    at the main path's rounds and annealing rounds: one counted call,
+    planes and thresholds equal on their int32 views, counts equal.
+    Needs an NVIDIA GPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cases = kt.ransac_cases(20000, 10, 1000, torch.device("cuda"))

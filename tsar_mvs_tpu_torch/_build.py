@@ -7,9 +7,10 @@ checkout, keyed by a hash of every file in ``csrc/``; the library is
 loaded with ctypes. Nothing is built from outside the checkout
 and nothing is built at import: the first kernel launch builds.
 
-Every C entry point takes pointers and the stream as ``void*`` and returns
-``cudaGetLastError()`` after its launch; ``check`` raises on a non-zero
-code.
+Every C entry point that launches takes pointers and the stream as
+``void*`` and returns ``cudaGetLastError()`` (or the launch's own error)
+after its launches; ``check`` raises on a non-zero code. The others
+return a constant of the kernels (``tsar_ransac_cluster``).
 """
 
 from __future__ import annotations
@@ -49,7 +50,9 @@ SIGNATURES = {
                         ctypes.POINTER(_F), _I, _F, _P, _P, _P, _P, _P, _P,
                         _P],
     "tsar_ransac_regions": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                            _F, _F, _F, _P, _P, _P, _P],
+                            _F, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+                            _P, _P, _P],
+    "tsar_ransac_cluster": [],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -142,17 +145,17 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def kernel_resources() -> list[str]:
+def kernel_resources(log: str | None = None) -> list[str]:
     """One "<kernel><template arguments>: N registers, M bytes spilled"
-    per compiled kernel, from ptxas's report in BUILD_LOG (empty when the
-    library was not built in this process)."""
+    per compiled kernel, from ptxas's report in `log`, by default
+    BUILD_LOG (empty when the library was not built in this process)."""
     out, name = [], None
-    for line in BUILD_LOG.splitlines():
+    for line in (BUILD_LOG if log is None else log).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel"
                           r"|direct_multiview_kernel|wmf_median_kernel"
-                          r"|ransac_regions_kernel)"
+                          r"|ransac_\w+?_kernel)"
                           r"(\w*)", m.group(1))
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \

@@ -13,6 +13,10 @@ the same grids and candidate counts as B1's.
         [--json OUT]
     python -m tsar_mvs_tpu_torch.kernel_times b5 <scene_dir> [--json OUT]
         [--before <older checkout's root>]
+    python -m tsar_mvs_tpu_torch.kernel_times b5-design <scene_dir>
+        [--json OUT]
+    python -m tsar_mvs_tpu_torch.kernel_times b5-parts <scene_dir>
+        [--json OUT]
 
 `render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
 pair.txt) and view 0's ground truth (`gt_view0.npz`) once (one spawned
@@ -30,13 +34,21 @@ row-chunked `_median_plane_chunked` of its `ops/wmf.py`: only a checkout
 from before B4 has that function (later ones run B4), so the option
 serves only to compare against such a checkout. `b4-parts` times B4 at
 two of those passes as built and with each of its parts taken out
-(`B4_PARTS`): what each part costs. `b5` times kernel B5 (the region
-RANSAC of a view) on the regions `process_view` gives it for view 0
-(`recording_ransac_inputs`), beside its bound, its ceiling, the latency
-of its dependent chain (`chain_inputs`) and its plain version, and the
-`ransac` stage (`fit_region_planes`); with `--before` that stage as an
-older checkout runs it (its `models/tsar.py` and `models/ransac.py`,
-`load_before_tsar`), alternated with this one's in one process.
+(`B4_PARTS`): what each part costs. `b5` first splits the process's
+first RANSAC into its parts (`first_ransac_split`), then times kernel B5
+(the region RANSAC of a view) on the regions `process_view` gives it for
+view 0 (`recording_ransac_inputs`), beside its bound, its ceiling, the
+latency of its dependent chain (`chain_inputs`), its plain version and
+its split into rounds and annealing, then on every refining view of the
+scene with the view's region sizes, and the `ransac` stage
+(`fit_region_planes`); with `--before` an older checkout's B5 kernel,
+built from that checkout's own `csrc/` by its own `_build.py`, and its
+`ransac` stage (`load_before`), each alternated with this one's in one
+process (before, this, this, before). `b5-design` times B5 built with
+each combination of the annealing's blocks a cluster, steps a pass
+and threads a block (`B5_DESIGN`) on view 0's regions, its chain and the
+"many" and "odd_steps" stress inputs; `b5-parts` times B5 there with
+each part of its annealing pass taken out (`B5_PARTS`).
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -1158,13 +1170,43 @@ B4_PARTS = {
 }
 
 
+@contextlib.contextmanager
+def variant_libraries(variants: dict, symbols, tag: str):
+    """Each of `variants` ({name: CUDA source text}) built by one nvcc
+    into a library of its own, all started together, and loaded with
+    ctypes with the argument types `_build.SIGNATURES` gives `symbols`:
+    {name: (library, ptxas's registers and spills)}, alive while open."""
+    import ctypes
+    import tempfile
+    from tsar_mvs_tpu_torch import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        procs = {}
+        for name, text in variants.items():
+            so, cu = Path(tmp) / f"{name}.so", Path(tmp) / f"{name}.cu"
+            cu.write_text(text)
+            procs[name] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                 str(so), str(cu)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        libs = {}
+        for name, proc in procs.items():
+            log = proc.communicate()[1]
+            if proc.returncode != 0:
+                raise SystemExit(f"{tag}: nvcc failed on {name}:\n{log}")
+            lib = ctypes.CDLL(str(Path(tmp) / f"{name}.so"))
+            for sym in symbols:
+                getattr(lib, sym).argtypes = _build.SIGNATURES[sym]
+                getattr(lib, sym).restype = ctypes.c_int
+            libs[name] = (lib, _build.kernel_resources(log))
+        yield libs
+
+
 def time_b4_parts(calls: list, params, repeats: int = 2) -> dict:
     """B4's ms at the widest marking pass and the first fill pass of
     `calls` (mark 0, fill 0) as built from csrc/wmf.cu and with each part
     of B4_PARTS taken out (each variant one nvcc, all started together),
     `repeats` rounds in alternating order: {pass: {variant: [ms, ...]}}."""
-    import ctypes
-    import tempfile
     import torch
     from tsar_mvs_tpu_torch import _build
     from tsar_mvs_tpu_torch.ops import wmf
@@ -1178,46 +1220,27 @@ def time_b4_parts(calls: list, params, repeats: int = 2) -> dict:
                                  f"{old!r}")
             text = text.replace(old, new)
         variants[f"no_{part}"] = text
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        procs = {}
-        for name, text in variants.items():
-            so, cu = Path(tmp) / f"{name}.so", Path(tmp) / f"{name}.cu"
-            cu.write_text(text)
-            procs[name] = subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                 str(so), str(cu)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        libs = {}
-        for name, proc in procs.items():
-            if proc.wait() != 0:
-                raise SystemExit(f"b4-parts: nvcc failed on {name}:\n"
-                                 f"{proc.stderr.read()}")
-            lib = ctypes.CDLL(str(Path(tmp) / f"{name}.so"))
-            lib.tsar_wmf_median.argtypes = _build.SIGNATURES[
-                "tsar_wmf_median"]
-            lib.tsar_wmf_median.restype = ctypes.c_int
-            libs[name] = lib
-    out = {}
-    loaded = _build.load_library()
-    try:
-        for name, call in zip(pass_names(params), calls):
-            if name not in ("mark 0", "fill 0"):
-                continue
-            args = b4_args(call)
-            times: dict = {v: [] for v in variants}
-            for r in range(repeats):
-                for v in (list(variants) if r % 2 == 0
-                          else list(variants)[::-1]):
-                    _build._lib = libs[v]
-                    times[v].append(time_ms(
-                        lambda: wmf.median_plane(*args), 10))
-            print(f"B4 parts, {name}: {json.dumps(times)}", flush=True)
-            out[name] = times
-    finally:
-        _build._lib = loaded
-        torch.cuda.synchronize()
-    return out
+    with variant_libraries(variants, ["tsar_wmf_median"], "b4-parts") as libs:
+        out = {}
+        loaded = _build.load_library()
+        try:
+            for name, call in zip(pass_names(params), calls):
+                if name not in ("mark 0", "fill 0"):
+                    continue
+                args = b4_args(call)
+                times: dict = {v: [] for v in variants}
+                for r in range(repeats):
+                    for v in (list(variants) if r % 2 == 0
+                              else list(variants)[::-1]):
+                        _build._lib = libs[v][0]
+                        times[v].append(time_ms(
+                            lambda: wmf.median_plane(*args), 10))
+                print(f"B4 parts, {name}: {json.dumps(times)}", flush=True)
+                out[name] = times
+        finally:
+            _build._lib = loaded
+            torch.cuda.synchronize()
+        return out
 
 
 # Float operations of B5's function, whatever computes it: a residual
@@ -1290,18 +1313,19 @@ def recording_ransac_inputs(calls: list, fits: list | None = None):
         tsar.fit_region_planes = inner_fit
 
 
-def view_inputs(scene, params, dev) -> dict:
-    """The inputs of view 0's WMF passes ("wmf"), of its RANSAC call
-    ("ransac", RansacInputs) and of its fit_region_planes ("fit") as
-    `process_view` with `params` gives them (one run, its artifacts in a
-    temporary directory)."""
+def view_inputs(scene, params, dev, view: int = 0, wmf: bool = True) -> dict:
+    """The inputs of view `view`'s WMF passes ("wmf"; none without
+    `wmf`), of its RANSAC call ("ransac", RansacInputs) and of its
+    fit_region_planes ("fit") as `process_view` with `params` gives them
+    (one run, its artifacts in a temporary directory)."""
     import tempfile
     from tsar_mvs_tpu_torch import pipeline
     calls: dict = {"wmf": [], "ransac": [], "fit": []}
     with tempfile.TemporaryDirectory() as tmp, \
-            recording_wmf_inputs(calls["wmf"]), \
+            (recording_wmf_inputs(calls["wmf"]) if wmf
+             else contextlib.nullcontext()), \
             recording_ransac_inputs(calls["ransac"], calls["fit"]):
-        pipeline.process_view(scene, 0, params, out_dir=Path(tmp),
+        pipeline.process_view(scene, view, params, out_dir=Path(tmp),
                               device=dev)
     return calls
 
@@ -1326,41 +1350,78 @@ def b5_agreement(mk, mp) -> dict:
     return out
 
 
-# The stress inputs of B5 (`ransac_cases`).
+# The stress inputs of B5 (`ransac_cases`): those packed together in one
+# call, and one that needs a pack of its own (its own annealing rounds:
+# the deltas of a pack share them).
 RANSAC_CASES = ("three", "equal", "collinear", "inf", "ties", "thr_max",
-                "plane")
+                "plane", "many", "big")
+RANSAC_ALONE = ("odd_steps",)
+
+
+def odd_anneal_rounds(anneal_rounds: int) -> int:
+    """The annealing rounds of "odd_steps": the first count above
+    `anneal_rounds` whose 4 steps a round leave a part pass at the end
+    (4 a not a multiple of the kernel's LOOKAHEAD; a LOOKAHEAD that
+    divides 4 has none, and then the next count)."""
+    from tsar_mvs_tpu_torch.ops import cuda_ransac
+    L = cuda_ransac.LOOKAHEAD
+    return next((a for a in range(anneal_rounds + 1, anneal_rounds + 1 + L)
+                 if 4 * a % L), anneal_rounds + 1)
 
 
 def ransac_cases(n_big: int, rounds: int, anneal_rounds: int, dev,
                  thr_max: float = 0.003, thr_step: float = 0.0001,
-                 seed: int = 0) -> dict:
-    """Regions that stress B5, each as (points (N, 3), idx, deltas, thr0)
-    on `dev`, made with numpy from `seed` (the same on every device):
-    "three", a triangle (N = 3); "equal", 64 equal points (every triplet
-    degenerate); "collinear", 64 points on a line whose differences are
-    exact (every triplet degenerate); "inf", 500 points on a plane, one
-    with an infinite coordinate; "ties", 12 points on three parallel
-    planes, 4 a plane (counts tied across hypotheses); "thr_max", 2,000
-    points scattered in a box with the threshold starting half the
-    rounds' steps below thr_max (it climbs there and stops); "plane",
-    n_big points on a plane with 30% outliers."""
+                 seed: int = 0, n_over: int | None = None) -> dict:
+    """Regions that stress B5, each case a list of regions (points (N, 3),
+    idx, deltas, thr0) on `dev`, made with numpy from `seed` (the same on
+    every device): "three", a triangle (N = 3); "equal", 64 equal points
+    (every triplet degenerate); "collinear", 64 points on a line whose
+    differences are exact (every triplet degenerate); "inf", 500 points
+    on a plane, one with an infinite coordinate; "ties", 12 points on
+    three parallel planes, 4 a plane (counts tied across hypotheses);
+    "thr_max", 2,000 points scattered in a box with the threshold
+    starting half the rounds' steps below thr_max (it climbs there and
+    stops); "plane", n_big points on a plane with 30% outliers; "many",
+    40 regions of 3 to 2,000 points (log-uniform sizes, each on a plane
+    of its own with 20% outliers) beside two large ones of n_big // 2 and
+    2 CLUSTER_MIN_POINTS + 1 points (the annealing's one-block and
+    whole-cluster units in one launch); "big", n_over points on a plane
+    with 30% outliers, by default one more than a cluster holds in
+    shared memory (CLUSTER x SMEM_POINTS: its annealing reads global
+    memory); "odd_steps", 2,000 points on a plane with 30% outliers and
+    `odd_anneal_rounds(anneal_rounds)` annealing rounds (a part pass at
+    the end)."""
     import numpy as np
     import torch
     from tsar_mvs_tpu_torch.models import ransac
+    from tsar_mvs_tpu_torch.ops import cuda_ransac
     rng = np.random.default_rng(seed)
 
-    def on_plane(m, noise):
-        xy = rng.uniform(-1.0, 1.0, (m, 2))
-        z = 3.0 + 0.2 * xy[:, 0] - 0.1 * xy[:, 1] \
-            + noise * rng.standard_normal(m)
-        return np.column_stack([xy, z])
+    def on_plane(g, m, noise, outliers=0.0, tilt=(0.2, -0.1)):
+        xy = g.uniform(-1.0, 1.0, (m, 2))
+        z = 3.0 + tilt[0] * xy[:, 0] + tilt[1] * xy[:, 1] \
+            + noise * g.standard_normal(m)
+        p = np.column_stack([xy, z])
+        if outliers:
+            out = g.random(m) < outliers
+            p[out] = g.uniform(-1.0, 4.0, (int(out.sum()), 3))
+        return p
+
+    def region(g, p, n_rounds, n_anneal, thr0=None):
+        p = p.astype(np.float32)
+        idx = g.integers(0, len(p), (n_rounds, RANSAC_HYPOTHESES, 3))
+        u = g.random((n_anneal, 4, 4), dtype=np.float32)
+        return (torch.as_tensor(p, device=dev),
+                torch.as_tensor(idx.astype(np.int32), device=dev),
+                ransac.deltas_from_uniform(torch.as_tensor(u, device=dev)),
+                ransac.initial_threshold(len(p)) if thr0 is None else thr0)
 
     t = np.arange(64.0)
     grid = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
-    plane = on_plane(n_big, 1e-4)
+    plane = on_plane(rng, n_big, 1e-4)
     out = rng.random(n_big) < 0.3
     plane[out] = rng.uniform(-1.0, 4.0, (int(out.sum()), 3))
-    inf = on_plane(500, 1e-4)
+    inf = on_plane(rng, 500, 1e-4)
     inf[7, 0] = np.inf
     pts = {"three": np.array([[0.0, 0.0, 1.0], [1.0, 0.0, 1.2],
                               [0.0, 1.0, 0.9]]),
@@ -1373,26 +1434,41 @@ def ransac_cases(n_big: int, rounds: int, anneal_rounds: int, dev,
            "thr_max": rng.uniform(-1.0, 1.0, (2000, 3)),
            "plane": plane}
     cases = {}
-    for name in RANSAC_CASES:
-        p = pts[name].astype(np.float32)
-        idx = rng.integers(0, len(p), (rounds, RANSAC_HYPOTHESES, 3))
-        u = rng.random((anneal_rounds, 4, 4), dtype=np.float32)
+    for name in RANSAC_CASES[:7]:
         thr0 = (thr_max - (rounds // 2 - 0.5) * thr_step
-                if name == "thr_max" else 1e-3 if name == "ties"
-                else ransac.initial_threshold(len(p)))
-        cases[name] = (torch.as_tensor(p, device=dev),
-                       torch.as_tensor(idx.astype(np.int32), device=dev),
-                       ransac.deltas_from_uniform(
-                           torch.as_tensor(u, device=dev)), thr0)
+                if name == "thr_max" else 1e-3 if name == "ties" else None)
+        cases[name] = [region(rng, pts[name], rounds, anneal_rounds, thr0)]
+    g = np.random.default_rng(seed + 1)
+    sizes = np.round(np.exp(g.uniform(np.log(3.0), np.log(2000.0), 40)))
+    sizes[:2] = 3, 2000
+    sizes = [*sizes.astype(int).tolist(), n_big // 2,
+             2 * cuda_ransac.CLUSTER_MIN_POINTS + 1]
+    cases["many"] = [region(g, on_plane(g, m, 1e-4, 0.2,
+                                        g.uniform(-0.3, 0.3, 2)), rounds,
+                            anneal_rounds) for m in sizes]
+    if n_over is None:
+        n_over = cuda_ransac.CLUSTER * cuda_ransac.SMEM_POINTS + 1
+    cases["big"] = [region(g, on_plane(g, n_over, 1e-4, 0.3), rounds,
+                           anneal_rounds)]
+    cases["odd_steps"] = [region(g, on_plane(g, 2000, 1e-4, 0.3), rounds,
+                                 odd_anneal_rounds(anneal_rounds))]
     return cases
 
 
 def pack_cases(cases: dict, names, thr_max: float = 0.003,
                thr_step: float = 0.0001):
-    """RansacInputs of the regions `names` of `ransac_cases`, in order."""
+    """RansacInputs of the regions of the cases `names` of
+    `ransac_cases`, in order."""
     from tsar_mvs_tpu_torch.models import ransac
-    cols = list(zip(*(cases[n] for n in names)))
+    cols = list(zip(*(reg for n in names for reg in cases[n])))
     return ransac.pack_regions(*cols, thr_max, thr_step)
+
+
+def case_packs() -> list:
+    """The packs B5 is held to its plain version on: each case alone, the
+    cases of RANSAC_CASES all in one call, and each of RANSAC_ALONE."""
+    return ([(c,) for c in RANSAC_CASES] + [RANSAC_CASES]
+            + [(c,) for c in RANSAC_ALONE])
 
 
 def chain_inputs(inp):
@@ -1411,11 +1487,42 @@ def chain_inputs(inp):
                                inp.thr_step)
 
 
-def time_b5(calls: list) -> list[dict]:
+def b5_call(kernel, inp):
+    """`kernel.ransac_regions` (a version of ops/cuda_ransac.py) on
+    RansacInputs `inp`, with models/ransac.py's constants."""
+    from tsar_mvs_tpu_torch.models import ransac
+    return kernel.ransac_regions(
+        inp.points, inp.offsets, inp.idx, inp.deltas, inp.thr0, inp.total,
+        inp.gain, inp.thr_max, inp.thr_step, ransac.RATIO, ransac.EPS,
+        ransac.TINY)
+
+
+def alternated_ms(inp, before, repeats: int) -> dict:
+    """B5's ms on RansacInputs `inp` (CUDA events, a mean of `repeats`
+    calls after a warm-up) and, with `before` (an older checkout's
+    ops/cuda_ransac.py, `load_before`), that kernel's too, alternated:
+    before, this, this, before. {"this": [ms, ...], "before": [...]}."""
+    from tsar_mvs_tpu_torch.ops import cuda_ransac
+    order = [("this", cuda_ransac)]
+    if before is not None:
+        order = [("before", before), *order * 2, ("before", before)]
+    times: dict = {}
+    for name, kern in order:
+        times.setdefault(name, []).append(
+            time_ms(lambda: b5_call(kern, inp), repeats))
+    return times
+
+
+def time_b5(calls: list, before=None) -> list[dict]:
     """Kernel B5 on each recorded RansacInputs: its ms (CUDA events, a
     mean of 10 after a warm-up), launches in one call, agreement with the
     plain version (b5_agreement), the plain version's ms (one call), the
-    chain's ms (B5 on `chain_inputs`), the regions' sizes and the bound."""
+    chain's ms (B5 on `chain_inputs`), the rounds' ms (B5 on the same
+    inputs with no annealing round) and the annealing's (the rest; and
+    alone, with no round), the regions' sizes and the bound. With `before`
+    (an older checkout's ops/cuda_ransac.py, `load_before`) that kernel on
+    the same inputs too, alternated: before, this, this, before ("ms" is
+    then the mean of this kernel's two), its agreement and its split."""
     from tsar_mvs_tpu_torch.models import ransac
     from tsar_mvs_tpu_torch.ops import cuda_ransac
     out = []
@@ -1429,7 +1536,21 @@ def time_b5(calls: list) -> list[dict]:
         res = {"regions": len(n), "points": n, "rounds": rounds,
                "anneal_rounds": anneal, "launches_a_call": launches,
                **b5_agreement(mk, mp)}
-        res["ms"] = time_ms(lambda: ransac.ransac_regions(inp), 10)
+        no_anneal = inp._replace(deltas=inp.deltas[:, :0].contiguous())
+        no_rounds = inp._replace(idx=inp.idx[:, :0].contiguous())
+        kernels = {"": cuda_ransac}
+        if before is not None:
+            res["before_agreement"] = b5_agreement(b5_call(before, inp), mp)
+            kernels["before_"] = before
+        res["ms_each"] = alternated_ms(inp, before, 10)
+        for pre, kern in kernels.items():
+            ms = res["ms_each"][pre[:-1] or "this"]
+            res[pre + "ms"] = sum(ms) / len(ms)
+            res[pre + "rounds_ms"] = time_ms(
+                lambda: b5_call(kern, no_anneal), 10)
+            res[pre + "anneal_alone_ms"] = time_ms(
+                lambda: b5_call(kern, no_rounds), 10)
+            res[pre + "anneal_ms"] = res[pre + "ms"] - res[pre + "rounds_ms"]
         res["plain_ms"] = time_ms(lambda: ransac.ransac_regions_plain(inp),
                                   1, warmup=0)
         chain = chain_inputs(inp)
@@ -1440,36 +1561,128 @@ def time_b5(calls: list) -> list[dict]:
     return out
 
 
-def load_before_tsar(checkout: str):
-    """An older checkout's `models/tsar.py` with its own `models/ransac.py`
-    (modules of their own; their other imports resolve to this package):
-    `fit_region_planes` as that checkout runs it."""
+def time_b5_views(views: list, before=None) -> list[dict]:
+    """B5 on the RANSAC call of each refining view, [(view, RansacInputs
+    or None)]: the regions' sizes, its ms (CUDA events, a mean of 5),
+    its agreement with the plain version and, with `before`, that
+    kernel's ms, alternated: before, this, this, before."""
+    from tsar_mvs_tpu_torch.models import ransac
+    out = []
+    for view, inp in views:
+        res = {"view": view, "points": [] if inp is None
+               else region_sizes(inp)}
+        if inp is not None:
+            res.update(b5_agreement(ransac.ransac_regions(inp),
+                                    ransac.ransac_regions_plain(inp)))
+            for k, v in alternated_ms(inp, before, 5).items():
+                res[("" if k == "this" else k + "_") + "ms"] = sum(v) / len(v)
+        print(f"B5 view: {json.dumps(res)}", flush=True)
+        out.append(res)
+    return out
+
+
+def scene_ransac_inputs(scene, params, dev) -> list:
+    """[(view, its RANSAC call's RansacInputs, or None for a view
+    without a trueweak region of 3 reliable points)] of every view of the
+    scene, each run through `process_view` with `params`."""
+    out = []
+    for view in range(len(scene.names)):
+        calls = view_inputs(scene, params, dev, view, wmf=False)["ransac"]
+        out.append((view, calls[0] if calls else None))
+    return out
+
+
+def first_ransac_split(scene, dev) -> list[dict]:
+    """The parts of the `ransac` stage in this process's first
+    `process_view` (view 0: the process's first RANSAC) and in the next
+    (view 0 again), host seconds, each part synchronised before and
+    after: the draws (`ransac.draw_region`, every region), B5
+    (`ransac.ransac_regions`), the polish (`ransac.polish`) and inside it
+    the batched `torch.linalg.eigh`, and `fit_region_planes` in all (the
+    rest of it: the masks and points on the host). Runs before any other
+    RANSAC of the process."""
+    import tempfile
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    from tsar_mvs_tpu_torch.models import ransac, tsar
+    parts: dict = {}
+    hooks = [(tsar, "fit_region_planes", "fit"),
+             (ransac, "draw_region", "draws"),
+             (ransac, "ransac_regions", "b5"), (ransac, "polish", "polish"),
+             (torch.linalg, "eigh", "eigh")]
+    saved = [getattr(obj, attr) for obj, attr, _ in hooks]
+
+    def timed_part(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return run
+
+    out = []
+    try:
+        for (obj, attr, name), fn in zip(hooks, saved):
+            setattr(obj, attr, timed_part(name, fn))
+        for _ in range(2):
+            parts.clear()
+            with tempfile.TemporaryDirectory() as tmp:
+                pipeline.process_view(scene, 0, AlgorithmParams(),
+                                      out_dir=Path(tmp), device=dev)
+            out.append(dict(parts))
+    finally:
+        for (obj, attr, _), fn in zip(hooks, saved):
+            setattr(obj, attr, fn)
+    print(f"first RANSAC, then the next, seconds: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def load_before(checkout: str) -> dict:
+    """An older checkout's RANSAC path as modules of their own: its
+    `_build` ("build", which builds that checkout's csrc/ into its own
+    build/ directory), its `ops/cuda_ransac.py` on that build
+    ("cuda_ransac"; None in a checkout from before B5), its
+    `models/ransac.py` on that wrapper and its `models/tsar.py` on that
+    ransac ("tsar"); their other imports resolve to this package."""
     import importlib.util
-    mods = {}
-    for name in ("ransac", "tsar"):
-        path = Path(checkout) / "tsar_mvs_tpu_torch" / "models" / f"{name}.py"
-        spec = importlib.util.spec_from_file_location(f"{name}_before",
-                                                      path)
-        mods[name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mods[name])
+    root = Path(checkout) / "tsar_mvs_tpu_torch"
+
+    def load(name: str, rel: str):
+        path = root / rel
+        if not path.exists():
+            return None
+        spec = importlib.util.spec_from_file_location(f"{name}_before", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    mods = {"build": load("_build", "_build.py"),
+            "cuda_ransac": load("cuda_ransac", "ops/cuda_ransac.py"),
+            "ransac": load("ransac", "models/ransac.py")}
+    if mods["cuda_ransac"] is not None:
+        mods["cuda_ransac"]._build = mods["build"]
+        mods["ransac"].cuda_ransac = mods["cuda_ransac"]
+    mods["tsar"] = load("tsar", "models/tsar.py")
     mods["tsar"].ransac = mods["ransac"]
-    return mods["tsar"]
+    return mods
 
 
-def time_ransac_stage(fits: list, before: str | None,
-                      seed: int = 0) -> dict:
+def time_ransac_stage(fits: list, before=None, seed: int = 0) -> dict:
     """The `ransac` stage (fit_region_planes: masks, draws, the fit and
     the polish) on each recorded view's arguments, host seconds after a
     synchronisation, with a generator seeded `seed` each run; with
-    `before` (an older checkout's root) that checkout's
-    fit_region_planes too, alternated: before, this, this, before."""
+    `before` (an older checkout's models/tsar.py, `load_before`) that
+    checkout's fit_region_planes too, alternated: before, this, this,
+    before."""
     import torch
     from tsar_mvs_tpu_torch.models import tsar
     runs = [("this", tsar)]
     if before is not None:
-        old = load_before_tsar(before)
-        runs = [("before", old), ("this", tsar), ("this", tsar),
-                ("before", old)]
+        runs = [("before", before), ("this", tsar), ("this", tsar),
+                ("before", before)]
     out: dict = {name: [] for name, _ in runs}
     for name, mod in runs:
         for args in fits:
@@ -1484,20 +1697,129 @@ def time_ransac_stage(fits: list, before: str | None,
 
 
 def time_b5_all(scene, dev, before: str | None) -> dict:
-    """B5 on view 0's recorded regions (time_b5), its registers and
-    spills, launches a view, and the ransac stage beside `before`'s."""
+    """The process's first RANSAC split into its parts
+    (first_ransac_split), B5 on view 0's recorded regions (time_b5), its
+    registers and spills, launches a view, B5 on every refining view of
+    the scene (time_b5_views) and the ransac stage; with `before` (an
+    older checkout's root) that checkout's B5 kernel and ransac stage
+    beside this one's."""
     import torch
     from tsar_mvs_tpu_torch import _build
     from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch.ops import cuda_ransac
+    first = first_ransac_split(scene, dev)
+    old = load_before(before) if before is not None else {}
+    params = AlgorithmParams()
     cuda_ransac.LAUNCHES = 0
-    calls = view_inputs(scene, AlgorithmParams(), dev)
+    calls = view_inputs(scene, params, dev, wmf=False)
     torch.cuda.synchronize()
-    return {"launches_a_view": cuda_ransac.LAUNCHES,
-            "calls": time_b5(calls["ransac"]),
-            "stage": time_ransac_stage(calls["fit"], before),
-            "resources": [r for r in _build.kernel_resources()
-                          if r.startswith("ransac")]}
+    res = {"first_call": first, "launches_a_view": cuda_ransac.LAUNCHES,
+           "calls": time_b5(calls["ransac"], old.get("cuda_ransac")),
+           "views": time_b5_views(scene_ransac_inputs(scene, params, dev),
+                                  old.get("cuda_ransac")),
+           "stage": time_ransac_stage(calls["fit"], old.get("tsar")),
+           "resources": [r for r in _build.kernel_resources()
+                         if r.startswith("ransac")]}
+    return res
+
+
+# B5's design choices that `b5-design` sweeps: the annealing's blocks a
+# cluster, steps a pass and threads a block (csrc/ransac.cu's CLUSTER,
+# LOOKAHEAD and ANNEAL_THREADS).
+B5_DESIGN = {"CLUSTER": (1, 4, 8, 16), "LOOKAHEAD": (1, 2, 3, 4),
+             "ANNEAL_THREADS": (128, 256)}
+# What each part of B5's annealing pass costs (`b5-parts`): csrc/ransac.cu
+# with that part taken out (the results are then wrong, only the time
+# counts): the candidates' normalisation (a plain add instead), the
+# counts over the points, and the unit's exchange (each block stores its
+# counts into its own shared memory instead of its unit's blocks', and
+# waits for none of them).
+B5_PARTS = {
+    "tree": [("      if (lev == j) candidate(base, dl, eps, cd);",
+              "      if (lev == j)\n        for (int i = 0; i < 4; ++i) "
+              "cd[i] = __fadd_rn(base[i], dl[i]);")],
+    "count": [("          c[n] += residual(q.x, q.y, q.z, cp[n]) < thr;",
+               "          ;")],
+    "exchange": [("const unsigned dst = t / STORES;",
+                  "const unsigned dst = crank;")],
+}
+
+
+def b5_variant_sources(edits: dict) -> dict:
+    """{name: csrc/ransac.cu with that name's (old, new) text edits}."""
+    from tsar_mvs_tpu_torch import _build
+    src = (_build.CSRC / "ransac.cu").read_text()
+    out = {}
+    for name, pairs in edits.items():
+        text = src
+        for old, new in pairs:
+            if old not in text:
+                raise SystemExit(f"{name}: csrc/ransac.cu has no {old!r}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def time_b5_variants(variants: dict, inputs: dict, tag: str,
+                     repeats: int = 2) -> dict:
+    """B5 built from each of `variants` ({name: source text}; one nvcc a
+    variant, all started together) on each of `inputs` ({name:
+    RansacInputs}): per input and variant its ms (CUDA events, a mean of
+    10) in `repeats` rounds of alternating order and its agreement with
+    the plain version, and each variant's registers and spills."""
+    import torch
+    from tsar_mvs_tpu_torch import _build
+    from tsar_mvs_tpu_torch.models import ransac
+    out: dict = {"inputs": {}}
+    with variant_libraries(variants, ["tsar_ransac_regions",
+                                      "tsar_ransac_cluster"], tag) as libs:
+        loaded = _build.load_library()
+        try:
+            for name, inp in inputs.items():
+                mp = ransac.ransac_regions_plain(inp)
+                rows: dict = {v: {"ms": []} for v in variants}
+                for v in variants:
+                    _build._lib = libs[v][0]
+                    rows[v].update(b5_agreement(ransac.ransac_regions(inp),
+                                                mp))
+                for r in range(repeats):
+                    for v in (list(variants) if r % 2 == 0
+                              else list(variants)[::-1]):
+                        _build._lib = libs[v][0]
+                        rows[v]["ms"].append(time_ms(
+                            lambda: ransac.ransac_regions(inp), 10))
+                print(f"{tag}, {name} {region_sizes(inp)[:8]}: "
+                      f"{json.dumps(rows)}", flush=True)
+                out["inputs"][name] = rows
+        finally:
+            _build._lib = loaded
+            torch.cuda.synchronize()
+        out["resources"] = {v: libs[v][1] for v in variants}
+    print(f"{tag} resources: {json.dumps(out['resources'])}", flush=True)
+    return out
+
+
+def time_b5_design(inputs: dict) -> dict:
+    """B5 built with every combination of B5_DESIGN's values
+    (time_b5_variants), named C<cluster>_L<lookahead>_T<threads>."""
+    import itertools
+    import re
+    from tsar_mvs_tpu_torch import _build
+    src = (_build.CSRC / "ransac.cu").read_text()
+    edits = {}
+    for values in itertools.product(*B5_DESIGN.values()):
+        edits["C{}_L{}_T{}".format(*values)] = [
+            (re.search(rf"constexpr int {name} = \d+;", src).group(0),
+             f"constexpr int {name} = {v};")
+            for name, v in zip(B5_DESIGN, values)]
+    return time_b5_variants(b5_variant_sources(edits), inputs, "B5 design")
+
+
+def time_b5_parts(inputs: dict) -> dict:
+    """B5 as built and with each part of B5_PARTS taken out
+    (time_b5_variants)."""
+    edits = {"whole": [], **{f"no_{k}": v for k, v in B5_PARTS.items()}}
+    return time_b5_variants(b5_variant_sources(edits), inputs, "B5 parts")
 
 
 def time_all(scene, gt: dict, dev) -> dict:
@@ -1525,14 +1847,15 @@ def time_all(scene, gt: dict, dev) -> dict:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
     p.add_argument("command", choices=("render", "time", "b3", "b4",
-                                        "b4-parts", "b5"))
+                                        "b4-parts", "b5", "b5-design",
+                                        "b5-parts"))
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
     p.add_argument("--before", default=None,
                    help="b4: the ops/wmf.py of a checkout from before B4 "
                         "(its plain WMF) to time beside; b5: the root of "
-                        "an older checkout, whose ransac stage is timed "
-                        "beside")
+                        "an older checkout, whose B5 kernel (built from "
+                        "its own csrc/) and ransac stage are timed beside")
     ns = p.parse_args(argv)
     scene_dir = Path(ns.scene_dir)
     if ns.command == "render":
@@ -1554,6 +1877,17 @@ def main(argv: list[str] | None = None) -> int:
         res = time_b4_all(scene, dev, ns.before)
     elif ns.command == "b5":
         res = time_b5_all(scene, dev, ns.before)
+    elif ns.command in ("b5-design", "b5-parts"):
+        from tsar_mvs_tpu_torch.config import AlgorithmParams
+        inp = view_inputs(scene, AlgorithmParams(), dev, wmf=False)[
+            "ransac"][0]
+        cases = ransac_cases(50000, inp.idx.shape[1], inp.deltas.shape[1],
+                             dev)
+        inputs = {"view 0": inp, "chain": chain_inputs(inp),
+                  "many": pack_cases(cases, ["many"]),
+                  "odd_steps": pack_cases(cases, ["odd_steps"])}
+        res = (time_b5_design if ns.command == "b5-design"
+               else time_b5_parts)(inputs)
     elif ns.command == "b4-parts":
         from tsar_mvs_tpu_torch.config import AlgorithmParams
         params = AlgorithmParams()

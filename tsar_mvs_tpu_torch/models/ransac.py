@@ -164,7 +164,7 @@ def ransac_regions_plain(inp: RansacInputs):
 
 
 def ransac_regions(inp: RansacInputs):
-    """`ransac_regions_plain`'s result: kernel B5 in one launch for CUDA
+    """`ransac_regions_plain`'s result: kernel B5 in one call for CUDA
     tensors, the plain version for CPU tensors."""
     if inp.points.is_cuda:
         return cuda_ransac.ransac_regions(

@@ -1,41 +1,108 @@
 """Kernel B5: the region RANSAC of one view.
 
-``ransac_regions`` launches ``csrc/ransac.cu`` once for all regions of a
-view, one block a region: the rounds of 1000 triplet hypotheses with the
-adaptive threshold, then the annealing's sequential accepts, on the
-regions' packed points and the draws made before the launch, as
-``models/ransac.py::ransac_regions_plain`` computes them (the dispatch,
-``ransac.ransac_regions``, takes the plain version for CPU tensors). It
-replaces the JAX package's jitted ``ransac_plane``
-(``tsar_mvs_tpu/models/ransac.py``: ``_plane_from_triplet``,
-``_count_inliers`` and its two ``lax.scan``s) and the per-region loop of
-``tsar_mvs_tpu/models/tsar.py`` ``fit_region_planes``; the JAX package has
-no TPU kernel for it. Every float step is rounded on its own in the plain
-version's order and the counts are integers, so the kernel equals its
-plain version to the bit. This module imports nothing of
-``models/ransac.py``.
+``ransac_regions`` runs ``csrc/ransac.cu`` once for all regions of a view
+(one call, a short sequence of launches on the current stream): each
+round's 1000 triplet hypotheses counted over the whole card, the points
+cut into the chunks of ``round_chunks``, then one decide block a region
+(the argmax, the accept and the adaptive threshold); then the annealing's
+sequential accepts, a cluster of blocks a large region holding its points
+in shared memory and resolving several steps a pass (``anneal_units``).
+Its inputs are the regions' packed points and the draws made before the
+call, and it computes what ``models/ransac.py::ransac_regions_plain``
+computes (the dispatch, ``ransac.ransac_regions``, takes the plain
+version for CPU tensors). It replaces the JAX package's jitted
+``ransac_plane`` (``tsar_mvs_tpu/models/ransac.py``:
+``_plane_from_triplet``, ``_count_inliers`` and its two ``lax.scan``s) and
+the per-region loop of ``tsar_mvs_tpu/models/tsar.py``
+``fit_region_planes``; the JAX package has no TPU kernel for it. Every
+float step is rounded on its own in the plain version's order and the
+counts are integers, so the kernel equals its plain version to the bit.
+This module imports nothing of ``models/ransac.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 
+import numpy as np
 import torch
 
 from tsar_mvs_tpu_torch import _build
 
-# Kernel launches since the last reset (read by chip_smoke.py), in all and
-# by (regions, largest region's points) of the launch.
+# Calls since the last reset (read by chip_smoke.py), one a view however
+# many CUDA launches it makes, in all and by (regions, largest region's
+# points).
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
-# Hypotheses a round (one thread each, csrc/ransac.cu) and threads a block.
+# Mirrors of csrc/ransac.cu's constants: hypotheses a round and the decide
+# block's threads; the rounds' chunks (at least CHUNK_MIN points, about
+# CHUNK_BLOCKS_PER_SM blocks an SM); the annealing's blocks a cluster,
+# steps a pass, points a block holds in shared memory at most, and the
+# smallest region that takes a whole cluster.
 HYPOTHESES = 1000
 THREADS = 1024
-# A region's count and hypothesis share one 32-bit key in the block's
-# argmax.
+CHUNK_MIN = 256
+CHUNK_BLOCKS_PER_SM = 3
+CLUSTER = 16
+LOOKAHEAD = 2
+SMEM_POINTS = 12288
+CLUSTER_MIN_POINTS = 2048
+# A region's count and hypothesis share one 32-bit key in the argmax.
 MAX_POINTS = (1 << 21) - 1
+
+
+def round_chunks(n, sms: int) -> list[tuple[int, int, int]]:
+    """The rounds' work plan for regions of n points packed one after
+    another: (first region, start, end) of each block's points, absolute
+    indices into the packed points. A chunk holds at most `size` points,
+    size = max(CHUNK_MIN, ceil(sum(n) / (CHUNK_BLOCKS_PER_SM sms))): a
+    larger region is cut into near-equal pieces, smaller ones are merged
+    whole, in order, while they fit."""
+    n = [int(m) for m in n]
+    size = max(CHUNK_MIN, -(-sum(n) // (CHUNK_BLOCKS_PER_SM * sms)))
+    chunks: list[tuple[int, int, int]] = []
+    run = None
+    off = 0
+    for r, m in enumerate(n):
+        if m > size:
+            if run:
+                chunks.append(tuple(run))
+                run = None
+            k = -(-m // size)
+            chunks.extend((r, off + m * i // k, off + m * (i + 1) // k)
+                          for i in range(k))
+        elif run and run[2] - run[1] + m <= size:
+            run[2] += m
+        else:
+            if run:
+                chunks.append(tuple(run))
+            run = [r, off, off + m]
+        off += m
+    if run:
+        chunks.append(tuple(run))
+    return chunks
+
+
+def anneal_units(n, cluster: int = CLUSTER):
+    """The annealing's work plan: (region, blocks of its unit) for each
+    block of the launch, whose clusters are `cluster` blocks in order, and
+    the points a block holds in shared memory. A region of more than
+    CLUSTER_MIN_POINTS points takes a whole cluster (rank q holds points
+    [q S, (q + 1) S), S = ceil(N / cluster)); the others one block each,
+    `cluster` of them to a cluster, idle blocks (-1, 1) filling the last.
+    A block whose slice is larger than SMEM_POINTS reads it from global
+    memory; the rest fit the shared memory of the largest of them."""
+    n = [int(m) for m in n]
+    big = [r for r, m in enumerate(n)
+           if m > CLUSTER_MIN_POINTS and cluster > 1]
+    small = [r for r in range(len(n)) if r not in set(big)]
+    units = [(r, cluster) for r in big for _ in range(cluster)]
+    for i in range(0, len(small), cluster):
+        group = small[i:i + cluster]
+        units += [(r, 1) for r in group] + [(-1, 1)] * (cluster - len(group))
+    slices = [-(-n[r] // nb) for r, nb in units if r >= 0]
+    return units, max((s for s in slices if s <= SMEM_POINTS), default=0)
 
 
 def ransac_regions(points: torch.Tensor, offsets: torch.Tensor,
@@ -44,7 +111,7 @@ def ransac_regions(points: torch.Tensor, offsets: torch.Tensor,
                    gain: torch.Tensor, thr_max: float, thr_step: float,
                    ratio: float, eps: float, tiny: float):
     """(plane (R, 4) f32, count (R,) int32, threshold (R,) f32) of R
-    regions in one launch: points (P, 3) f32, region r its rows
+    regions in one call: points (P, 3) f32, region r its rows
     offsets[r]:offsets[r+1] (int64, R + 1 of them, at least 3 points a
     region), idx (R, rounds, HYPOTHESES, 3) int32 triplets in [0, N_r),
     deltas (R, anneal_rounds, 4, 4) f32, thr0, total and gain (R,) f32,
@@ -95,17 +162,27 @@ def ransac_regions(points: torch.Tensor, offsets: torch.Tensor,
     points, offsets, idx, deltas, thr0, total, gain = (
         t.contiguous() for t in tensors)
     dev = points.device
+    lib = _build.load_library()
+    chunks = round_chunks(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    units, smem_points = anneal_units(n, lib.tsar_ransac_cluster())
+    chunks = torch.as_tensor(np.array(chunks, np.int64), device=dev)
+    units = torch.as_tensor(np.array(units, np.int32), device=dev)
+    planes = torch.empty((R, HYPOTHESES, 4), dtype=torch.float32, device=dev)
+    counts = torch.empty((R, HYPOTHESES), dtype=torch.int32, device=dev)
+    state = torch.empty((R, 8), dtype=torch.int32, device=dev)
     plane = torch.empty((R, 4), dtype=torch.float32, device=dev)
     count = torch.empty(R, dtype=torch.int32, device=dev)
     thr = torch.empty(R, dtype=torch.float32, device=dev)
-    lib = _build.load_library()
     code = lib.tsar_ransac_regions(
         points.data_ptr(), offsets.data_ptr(), idx.data_ptr(),
         deltas.data_ptr(), thr0.data_ptr(), total.data_ptr(),
         gain.data_ptr(), R, idx.shape[1], deltas.shape[1], float(thr_max),
         float(thr_step), float(ratio), float(eps), float(tiny),
-        plane.data_ptr(), count.data_ptr(), thr.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        chunks.data_ptr(), chunks.shape[0], units.data_ptr(),
+        units.shape[0], smem_points, planes.data_ptr(), counts.data_ptr(),
+        state.data_ptr(), plane.data_ptr(), count.data_ptr(),
+        thr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "tsar_ransac_regions")
     LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(R, max(n))] += 1
