@@ -58,6 +58,19 @@ line (the 2K scene renders in one spawned process per view):
    memory), each alone and all in one call, and on 2,000 points whose
    annealing steps end on a part pass (alone); planes and thresholds
    equal on their int32 views, counts equal;
+   (d) kernel B6 (PatchMatch's checkerboard half-pass around B1: its
+   candidate selection, refine proposals and accepts) against its plain
+   version on the first propagation and refinement half-pass of each of
+   view 0's levels, recorded in the same second run with their states
+   and draws (kernel_times.recording_halfpasses), and on each one's
+   stress input (kernel_times.b6_stress: d = 0 planes, NaN depths and
+   costs, +inf costs, tied costs, draws at the ends of [0, 1)): the
+   first kernel's outputs and the state after the half-pass equal (max
+   |delta| 0.0, NaN at the same places, best views equal), two launches
+   a propagation half-pass and two a refine scale; then each B6 kernel
+   timed at each level beside its bound and its plain version; view 0's
+   pyramid must launch fewer than PYRAMID_LAUNCHES kernels of any kind
+   (the profiler's count, kernel_times.patchmatch_split);
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
@@ -99,7 +112,8 @@ line (the 2K scene renders in one spawned process per view):
        its input;
    (e) images whose pyramid level 2 has an odd side: view 0 of
        make_scene(500, 750) on both samplers, each within 0.02 acc2_pm
-       of the same run at 500x752;
+       of the same run at 500x752; B6 held to its plain version on the
+       odd scene's dense level as in 5(d);
 9. the view-sharded scene (tsar_mvs_tpu_torch/parallel/):
    (a) process_scene_sharded on a fresh copy of the 1344x2048x8 scene,
        world 1 in an NCCL group: per-phase seconds (A-F), peak memory,
@@ -133,7 +147,9 @@ line (the 2K scene renders in one spawned process per view):
    (c) bench_scaling.run_count(1): one spawned NCCL rank at the harness's
        defaults (96x128, 2 iterations, 2 scenes).
 
-Every view of phases 5-10 launches B4 once per WMF pass (10 a view,
+Every view of phases 5-10 launches B6 twice a propagation half-pass and
+twice a refine scale (312 a 2K view; none of the plain half-pass, whose
+calls halfpass.PLAIN_CALLS counts), B4 once per WMF pass (10 a view,
 80 in the sharded scene) and B5 once (8 in the sharded scene; a view
 without a trueweak region of 3 reliable points launches no B5, and the
 checks count such views from tsar.VIEWS_WITHOUT_REGIONS and print
@@ -141,7 +157,8 @@ them), the crosschecks' and phase 5(b)'s and 5(c)'s launches aside. After phase 
 (profiler), and on the direct paths (grayscale, colour, n_best 3) into B3
 and the rest, B3 once per evaluation. At the end one JSON line of
 per-kernel results (the top-level numbers of a kernel
-are those of its level-1 shape, "shapes" holds every timed shape and
+are those of its level-1 shape, B6's the sum of its four kernels
+there, "shapes" holds every timed shape and
 "launches_by_shape" the counted launches at each of its main path: B1's,
 B2's and B4's the default view's, B3's the direct view's), the card line,
 and last {"ok": true, "device": {...}}.
@@ -149,6 +166,7 @@ and last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import sys
@@ -523,6 +541,34 @@ def check_b5(calls: list) -> tuple[list, int]:
     return shapes, max(r["max_abs_err"] for r in [*shapes, *res.values()])
 
 
+def check_b6(calls: list, label: str) -> tuple[list, float]:
+    """Kernel B6 against its plain version on recorded half-passes
+    `calls` (kernel_times.recording_halfpasses: each level's first
+    propagation and refinement half-pass, their states and draws;
+    kernel_times.b6_check) and on each one's stress input
+    (kernel_times.b6_stress: d = 0 planes, NaN depths and costs, +inf
+    costs, tied costs, draws at 0 and 1 - 2^-24): the first kernel's
+    outputs and the state after the half-pass equal (max |delta| 0.0, NaN
+    at the same places, best view and valid flags equal), two launches a
+    propagation half-pass and two a refine scale. Prints one line;
+    returns the rows and the largest |delta|."""
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    rows, ok = [], True
+    for call in calls:
+        for case, c in (("recorded", call), ("stress", kt.b6_stress(call))):
+            r = {"case": case, **kt.b6_check(c)}
+            want = (2 if c["kind"] == "propagation"
+                    else 2 * len(c["sched"]))
+            ok &= (r["max_abs_err"] == 0 and r["mismatches"] == 0
+                   and r["launches"] == want)
+            rows.append(r)
+    print(f"B6 vs plain ({label}): {json.dumps(rows)} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("B6 disagrees with its plain version")
+    return rows, max(r["max_abs_err"] for r in rows)
+
+
 def acc2_for(scene_gt, scene, ref: int, depth, min_sources: int = 1):
     """acc2 of a depth map over the matchable textured pixels of view
     `ref` (finite GT, not weak, seen by at least `min_sources` sources of
@@ -561,21 +607,42 @@ def stage_timer(stages: dict):
 
 def _wrappers() -> dict:
     """The kernel wrappers by key: B1 "ncc", B2 "warp", B3 "direct", B4
-    "wmf", B5 "ransac"."""
+    "wmf", B5 "ransac", B6 "halfpass"."""
     from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp
-    from tsar_mvs_tpu_torch.ops import cuda_ransac, cuda_wmf
+    from tsar_mvs_tpu_torch.ops import cuda_halfpass, cuda_ransac, cuda_wmf
     return {"ncc": cuda_ncc, "warp": cuda_warp, "direct": cuda_direct,
-            "wmf": cuda_wmf, "ransac": cuda_ransac}
+            "wmf": cuda_wmf, "ransac": cuda_ransac,
+            "halfpass": cuda_halfpass}
 
 
 def reset_launches() -> None:
-    """Every wrapper's counts, and the count of refined views without a
-    RANSAC region, to 0."""
+    """Every wrapper's counts, the count of refined views without a
+    RANSAC region and the plain half-pass's calls to 0."""
     from tsar_mvs_tpu_torch.models import tsar
+    from tsar_mvs_tpu_torch.ops import halfpass
     for mod in _wrappers().values():
         mod.LAUNCHES = 0
         mod.LAUNCHES_BY_SHAPE.clear()
     tsar.VIEWS_WITHOUT_REGIONS = 0
+    halfpass.PLAIN_CALLS = 0
+
+
+def plain_halfpass_calls() -> int:
+    """Calls of the plain (torch) half-pass since reset_launches: 0 on the
+    card."""
+    from tsar_mvs_tpu_torch.ops import halfpass
+    return halfpass.PLAIN_CALLS
+
+
+def b6_expected(scene, params) -> int:
+    """Kernel B6's launches in one view's pyramid of `scene` (its levels
+    as process_view picks them): two a propagation half-pass and two a
+    refine scale (kernel_times.b6_launches)."""
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch import pipeline
+    params = pipeline.default_params_for_scene(scene, params)
+    return kt.b6_launches(kt.launch_plan(
+        scene, params, pipeline.pyramid_levels_for(scene.images.shape[1])))
 
 
 def b5_expected(views: int) -> int:
@@ -595,7 +662,8 @@ def read_launches_by_shape() -> dict:
     """The wrappers' counts by shape: B1 by packed or dense grid and
     candidates of the launch, B2 by image grid and planes, B3 by grid,
     candidates, channels and n_best, B4 by image grid, radius and gap, B5
-    by regions and the largest region's points."""
+    by regions and the largest region's points, B6 by kernel, grid and
+    banks."""
     w = _wrappers()
     return {"ncc": [{"grid": [hc, wc], "C": c, "launches": n}
                     for (hc, wc, c), n
@@ -612,12 +680,19 @@ def read_launches_by_shape() -> dict:
                     in sorted(w["wmf"].LAUNCHES_BY_SHAPE.items())],
             "ransac": [{"regions": r, "largest_n": m, "launches": n}
                        for (r, m), n
-                       in sorted(w["ransac"].LAUNCHES_BY_SHAPE.items())]}
+                       in sorted(w["ransac"].LAUNCHES_BY_SHAPE.items())],
+            "halfpass": [{"kernel": k, "grid": [hc, wc], "banks": b,
+                          "launches": n} for (k, hc, wc, b), n
+                         in sorted(w["halfpass"].LAUNCHES_BY_SHAPE.items())]}
 
 
 # WMF passes a view at the default AlgorithmParams (wmf_iters +
 # wmf_final_iters): kernel B4's launches a view.
 WMF_PASSES = 4 + 6
+# Kernels of any kind (kernels, copies, fills) view 0's pyramid may
+# launch on the main path, as the profiler counts them
+# (kernel_times.patchmatch_split): B6 brought them from about 23,800 down.
+PYRAMID_LAUNCHES = 2000
 
 
 def run_main_path(scene_gt, root: Path, dev) -> dict:
@@ -639,6 +714,7 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     total = time.perf_counter() - t0
     launches = read_launches()
     by_shape = read_launches_by_shape()
+    plain = plain_halfpass_calls()
     peak = torch.cuda.max_memory_allocated()
 
     pm_acc = acc2_for(scene_gt, scene, 0, result.depth_pm)
@@ -656,17 +732,21 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
                   and result.depth.shape == (H, W))
     res = {"seconds": total, "stages": stages, "peak_bytes": peak,
            "launches": launches, "launches_by_shape": by_shape, **acc,
-           "missing": missing,
+           "plain_halfpass_calls": plain, "missing": missing,
            "depth_finite": finite}
     print(f"main path: {json.dumps(res)}", flush=True)
     if missing or not finite:
         raise SystemExit(f"main path artifacts: missing {missing}, "
                          f"finite depth {finite}")
     if (min(launches["ncc"], launches["warp"]) == 0 or launches["direct"]
-            or launches["wmf"] != WMF_PASSES or launches["ransac"] != 1):
+            or launches["wmf"] != WMF_PASSES or launches["ransac"] != 1
+            or launches["halfpass"] != b6_expected(scene, AlgorithmParams())
+            or plain):
         raise SystemExit(f"the main path launches B1, B2, B4 (once per "
-                         f"WMF pass) and B5 (once: view 0 has trueweak "
-                         f"regions) only: {launches}")
+                         f"WMF pass), B5 (once: view 0 has trueweak "
+                         f"regions) and B6 (two a half-pass and two a "
+                         f"refine scale) only, and no plain half-pass: "
+                         f"{launches}, plain {plain}")
     for kernel, total in launches.items():
         if sum(sh["launches"] for sh in by_shape[kernel]) != total:
             raise SystemExit(f"{kernel}: launches by shape {by_shape} do "
@@ -680,6 +760,7 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
     """process_scene (resume: view 0 is phase 5's), fuse_scene, F1@2cm."""
     import numpy as np
     import torch
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch import eval as ev
     from tsar_mvs_tpu_torch.utils import dmb, ply
     from tsar_mvs_tpu_torch.utils.synthetic import gt_cloud
@@ -718,7 +799,9 @@ def run_scene_phase(scene_gt, root: Path, dev) -> dict:
     print(f"scene phase: {json.dumps(res)}", flush=True)
     if (min(launches["ncc"], launches["warp"]) == 0
             or launches["wmf"] != (len(scene.names) - 1) * WMF_PASSES
-            or launches["ransac"] != b5 or b5 == 0):
+            or launches["ransac"] != b5 or b5 == 0
+            or launches["halfpass"] != (len(scene.names) - 1) * b6_expected(
+                scene, AlgorithmParams()) or plain_halfpass_calls()):
         raise SystemExit(f"a kernel was not launched in the scene (B4 once "
                          f"per WMF pass of views 1-7, B5 once a view with "
                          f"a trueweak region: {b5}): {launches}")
@@ -796,15 +879,16 @@ def run_apd_phase(scene_gt, root: Path, dev) -> list[dict]:
         if not res["depth_finite"]:
             raise SystemExit("APD branch: non-finite depth")
         la = res["launches"]
-        used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
-                ) if pm_iterations else set()
+        used = ({"direct", "halfpass"} if impl == "direct"
+                else {"ncc", "warp", "halfpass"}) if pm_iterations else set()
         used.add("wmf")
         if b5_expected(1):
             used.add("ransac")
         if any((la[k] > 0) != (k in used) for k in la) or \
-                la["wmf"] != WMF_PASSES or la["ransac"] != b5_expected(1):
+                la["wmf"] != WMF_PASSES or la["ransac"] != b5_expected(1) \
+                or plain_halfpass_calls():
             raise SystemExit(f"the APD branch launched {la}; expected "
-                             f"{sorted(used) or 'none'}")
+                             f"{sorted(used) or 'none'}, no plain half-pass")
         if res["acc2_final"] < least:
             raise SystemExit(f"APD, {pm_iterations} PatchMatch iterations, "
                              f"{budget} MiB, {impl}: acc2_final below "
@@ -850,10 +934,12 @@ def run_direct_view(scene_gt, scene, params, out_dir: Path, dev,
         res["acc2_final_seen_by_1"] = acc2_for(scene_gt, scene, 0,
                                                result.depth)["textured"]
     expect = {"ncc": 0, "warp": 0, "direct": evaluations,
-              "wmf": WMF_PASSES, "ransac": b5_expected(1)}
-    if res["launches"] != expect:
+              "wmf": WMF_PASSES, "ransac": b5_expected(1),
+              "halfpass": b6_expected(scene, params)}
+    if res["launches"] != expect or plain_halfpass_calls():
         raise SystemExit(f"direct view: launches {res['launches']}, "
-                         f"expected {expect}")
+                         f"expected {expect}, plain half-passes "
+                         f"{plain_halfpass_calls()}")
     if (not res["depth_finite"] or res["acc2_pm"] < 0.95
             or res["acc2_final"] < 0.95):
         raise SystemExit(f"direct view below its limits: {res}")
@@ -915,8 +1001,9 @@ def run_odd_phase(dev) -> dict:
     from tsar_mvs_tpu_torch.config import AlgorithmParams
     from tsar_mvs_tpu_torch.utils.synthetic import make_scene
     from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch import kernel_times as kt
     base = Path(tempfile.mkdtemp(prefix="tsar_odd_"))
-    runs = {}
+    runs, odd_calls = {}, []
     for h, w in (ODD, EVEN):
         t = time.perf_counter()
         sg = make_scene(height=h, width=w, num_views=ODD_VIEWS, seed=0)
@@ -927,16 +1014,25 @@ def run_odd_phase(dev) -> dict:
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            result = pipeline.process_view(
-                scene, 0, AlgorithmParams(ncc_impl=impl),
-                out_dir=base / f"out_{h}x{w}_{impl}", device=dev)
+            with (kt.recording_halfpasses(odd_calls)
+                  if (h, w) == ODD and impl == "svolume"
+                  else contextlib.nullcontext()):
+                result = pipeline.process_view(
+                    scene, 0, AlgorithmParams(ncc_impl=impl),
+                    out_dir=base / f"out_{h}x{w}_{impl}", device=dev)
             torch.cuda.synchronize()
             la = read_launches()
             used = ({"direct"} if impl == "direct" else {"ncc", "warp"}
-                    ) | {"wmf"} | ({"ransac"} if b5_expected(1) else set())
+                    ) | {"wmf", "halfpass"} | (
+                        {"ransac"} if b5_expected(1) else set())
             if any((la[k] > 0) != (k in used) for k in la) or \
-                    la["wmf"] != WMF_PASSES or la["ransac"] != b5_expected(1):
-                raise SystemExit(f"{h}x{w} {impl}: launches {la}")
+                    la["wmf"] != WMF_PASSES or \
+                    la["ransac"] != b5_expected(1) or \
+                    la["halfpass"] != b6_expected(
+                        scene, AlgorithmParams(ncc_impl=impl)) or \
+                    plain_halfpass_calls():
+                raise SystemExit(f"{h}x{w} {impl}: launches {la}, plain "
+                                 f"half-passes {plain_halfpass_calls()}")
             runs[f"{h}x{w} {impl}"] = {
                 "seconds": time.perf_counter() - t0, "render_s": render_s,
                 "launches": la,
@@ -954,7 +1050,12 @@ def run_odd_phase(dev) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     if not ok:
         raise SystemExit(f"odd-sided levels: acc2_pm gaps {gaps} above 0.02")
-    return runs
+    dense = [c for c in odd_calls if not c["grid"].packed]
+    if not dense:
+        raise SystemExit("the odd scene ran no dense half-pass")
+    _, b6_worst = check_b6(dense, f"the dense level of {ODD[0]}x{ODD[1]}, "
+                                  f"phase 8e")
+    return runs, b6_worst
 
 
 # Phase 9(b): two ranks sharing the card under gloo, on a scene of this
@@ -1018,6 +1119,7 @@ def run_sharded_phase(scene_gt, root: Path, dev, evaluations: int,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_launches()
+        plain = plain_halfpass_calls()
         b5 = b5_expected(V)
         backend = dist.get_backend()
     finally:
@@ -1047,11 +1149,12 @@ def run_sharded_phase(scene_gt, root: Path, dev, evaluations: int,
            "f1": fs.f1, "precision": fs.precision, "recall": fs.recall,
            "sequential_points": sequential["points"],
            "sequential_f1": sequential["f1"], "artifacts_written": written,
-           "views_without_regions": V - b5}
+           "views_without_regions": V - b5, "plain_halfpass_calls": plain}
     print(f"sharded scene (phase 9a): {json.dumps(res)}", flush=True)
     expect = {"ncc": V * evaluations, "warp": V * builds, "direct": 0,
-              "wmf": V * WMF_PASSES, "ransac": b5}
-    if launches != expect:
+              "wmf": V * WMF_PASSES, "ransac": b5,
+              "halfpass": V * b6_expected(scene, AlgorithmParams())}
+    if launches != expect or res["plain_halfpass_calls"]:
         raise SystemExit(f"sharded scene: launches {launches}, expected "
                          f"{expect}")
     if not written or res["ply_points"] != res["points"]:
@@ -1271,6 +1374,7 @@ def sharded_rank(root: str, out: str) -> None:
             write_artifacts=False)
         torch.cuda.synchronize()
         info["launches"][impl] = read_launches()
+        info["launches"][impl]["plain_halfpass"] = plain_halfpass_calls()
         info["views_without_regions"][impl] = tsar.VIEWS_WITHOUT_REGIONS
         if mesh.rank == 0:
             np.savez(Path(out) / f"{impl}.npz", depths=depths,
@@ -1316,8 +1420,8 @@ def run_sharded_ranks_phase(dev) -> dict:
     ranks_s = time.perf_counter() - t0
     infos = [json.loads((out / f"rank{k}.json").read_text())
              for k in range(2)]
-    used = {"svolume": {"ncc", "warp", "wmf"},
-            "direct": {"direct", "wmf"}}
+    used = {"svolume": {"ncc", "warp", "wmf", "halfpass"},
+            "direct": {"direct", "wmf", "halfpass"}}
     res, ok = {"ranks": infos, "ranks_s": ranks_s,
                "site_worst": site_worst}, True
     for impl in SHARDED_IMPLS:
@@ -1335,6 +1439,11 @@ def run_sharded_ranks_phase(dev) -> dict:
         launched = all((info["launches"][impl][k] > 0) == (k in used[impl])
                        for info in infos for k in info["launches"][impl]
                        if k != "ransac")
+        # B6 two a half-pass and two a refine scale of every view, over
+        # the ranks.
+        launched &= sum(info["launches"][impl]["halfpass"]
+                        for info in infos) == SHARDED_SMALL_VIEWS * \
+            b6_expected(scene, AlgorithmParams(ncc_impl=impl))
         # B5 once a view over the ranks, less the views without a
         # trueweak region of 3 reliable points (at this size every view
         # has none, so B5 launches nothing here).
@@ -1362,7 +1471,8 @@ BENCH_REPEATS, AB_REPEATS = 2, 2
 ACC2_WEAK_FINAL_TPU = 1.0
 
 
-def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
+def run_harness_phase(scene_gt, dev, evaluations: int, builds: int,
+                      b6: int) -> dict:
     """Phase 10: the bench, the sampler A/B and one scaling point on the
     rendered 2K scene (no new render, no subprocess that renders)."""
     import math
@@ -1380,7 +1490,7 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
     print(f"bench (phase 10a): {json.dumps(res)}", flush=True)
     expect = {"ncc": views * evaluations, "warp": views * builds,
               "direct": 0, "wmf": views * WMF_PASSES,
-              "ransac": b5_expected(views)}
+              "ransac": b5_expected(views), "halfpass": views * b6}
     bench_s = time.perf_counter() - t_phase
     info = {"seconds": bench_s, "views": views, "launches": launches,
             "expected": expect, "acc2_weak_final": res["acc2_weak_final"],
@@ -1418,9 +1528,10 @@ def run_harness_phase(scene_gt, dev, evaluations: int, builds: int) -> dict:
         raise SystemExit(f"sampler A/B below its limits: {ab}")
     if ab_launches != {
             "direct": {"ncc": 0, "warp": 0, "direct": runs * evaluations,
-                       "wmf": 0, "ransac": 0},
+                       "wmf": 0, "ransac": 0, "halfpass": runs * b6},
             "svolume": {"ncc": runs * evaluations, "warp": runs * builds,
-                        "direct": 0, "wmf": 0, "ransac": 0}}:
+                        "direct": 0, "wmf": 0, "ransac": 0,
+                        "halfpass": runs * b6}}:
         raise SystemExit(f"sampler A/B launches {ab_launches}")
 
     t = time.perf_counter()
@@ -1517,26 +1628,44 @@ def main() -> int:
             raise SystemExit(f"B3 disagrees with its plain version at "
                              f"{sh}")
     main_res = run_main_path(scene_gt, root, dev)
-    calls = kt.view_inputs(scene, AlgorithmParams(), dev)
+    calls = kt.view_inputs(scene, AlgorithmParams(), dev, halfpass=True)
     b4_shapes, b4_worst = check_b4(calls["wmf"])
     b5_shapes, b5_worst = check_b5(calls["ransac"])
+    b6_rows, b6_worst = check_b6(calls["halfpass"], "view 0's levels, "
+                                                     "phase 5d")
+    b6_shapes = kt.time_b6(calls["halfpass"], {
+        (r["kernel"], *r["grid"], r["banks"]): r["launches"]
+        for r in main_res["launches_by_shape"]["halfpass"]})
     del calls
     torch.cuda.empty_cache()
     plan = kt.launch_plan(scene, params)
     evaluations = sum(p["propagation"] + p["refinement"] + p["init"]
                       for p in plan)
     builds = sum(p["builds"] for p in plan)
+    b6 = kt.b6_launches(plan)
     print(f"launch plan: {json.dumps(plan)}", flush=True)
     if main_res["launches"] != {"ncc": evaluations, "warp": builds,
                                 "direct": 0, "wmf": WMF_PASSES,
-                                "ransac": 1}:
+                                "ransac": 1, "halfpass": b6}:
         raise SystemExit(f"launches {main_res['launches']} are not one per "
-                         f"cost evaluation ({evaluations}) and one per "
-                         f"volume ({builds})")
+                         f"cost evaluation ({evaluations}), one per "
+                         f"volume ({builds}) and B6's {b6}")
     torch.cuda.empty_cache()
     split = kt.patchmatch_split(scene, params, dev)
     if split["device"] is None:
         raise SystemExit("the profiler reported no device activity")
+    dev_split = split["device"]
+    if (dev_split["b1"]["launches"] != evaluations
+            or dev_split["b2"]["launches"] != builds
+            or dev_split["b6"]["launches"] != b6
+            or split["launches"] >= PYRAMID_LAUNCHES):
+        raise SystemExit(f"view 0's pyramid launched {split['launches']} "
+                         f"kernels of any kind (at most "
+                         f"{PYRAMID_LAUNCHES - 1}), B1, B2 and B6 "
+                         f"{dev_split['b1']['launches']}, "
+                         f"{dev_split['b2']['launches']}, "
+                         f"{dev_split['b6']['launches']} (expected "
+                         f"{evaluations}, {builds}, {b6})")
     by_kind = kt.b1_seconds_by_kind(plan, split["b1_each_us"])
     print(f"B1 on the main path, [seconds, launches] by level and kind: "
           f"{json.dumps(by_kind)}", flush=True)
@@ -1555,7 +1684,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     direct_res = run_direct_phase(scene_gt, root, dev, evaluations)
     torch.cuda.empty_cache()
-    run_odd_phase(dev)
+    _, odd_b6_worst = run_odd_phase(dev)
     torch.cuda.empty_cache()
     run_sharded_phase(scene_gt, root, dev, evaluations, builds, scene_res)
     torch.cuda.empty_cache()
@@ -1564,7 +1693,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     site_worst.append(run_sharded_ranks_phase(dev)["site_worst"])
     torch.cuda.empty_cache()
-    run_harness_phase(scene_gt, dev, evaluations, builds)
+    run_harness_phase(scene_gt, dev, evaluations, builds, b6)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head_b1 = next(sh for sh in b1_shapes if sh["level"] == 1
@@ -1574,6 +1703,18 @@ def main() -> int:
     # the widest marking pass.
     head_b4 = {**b4_shapes[0], "library_ms": None}
     head_b5 = {**b5_shapes[0], "library_ms": None}
+    # B6's numbers: its four kernels at level 1 (1344x1024 packed, 4
+    # banks), one of each: a propagation half-pass's select and accept and
+    # a refine scale's propose and accept. "ms" holds the wrapper's host
+    # time between back-to-back launches, "device_ms" the kernels' own.
+    # A sum is null when any of its readings is (a dropped trace).
+    level1 = [sh for sh in b6_shapes if sh["grid"] == [H, W // 2]]
+    head_b6 = {k: (None if any(sh[k] is None for sh in level1)
+                   else sum(sh[k] for sh in level1))
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    head_b6.update(bound_by="bytes" if all(sh["bound_by"] == "bytes"
+                                           for sh in level1)
+                   else "operations", library_ms=None)
     head_b3 = next(sh for sh in b3_shapes if sh["level"] == 1
                    and sh["C"] == 1 and sh["field"] == "smooth"
                    and sh["n_best"] == 1 and sh["channels"] == 1)
@@ -1632,6 +1773,21 @@ def main() -> int:
          "rounds_ms": head_b5["rounds_ms"],
          "anneal_ms": head_b5["anneal_ms"], "shapes": b5_shapes,
          "launches_by_shape": main_res["launches_by_shape"]["ransac"]},
+        {"name": "checkerboard_halfpass", "route": "cuda",
+         "source": "tsar_mvs_tpu_torch/csrc/halfpass.cu",
+         "replaces": "tsar_mvs_tpu/models/patchmatch.py:258 (XLA; "
+                     "_refinement_pass :347 and its scale_body :397, "
+                     "make_patchmatch_step :470; "
+                     "tsar_mvs_tpu/ops/checkerboard.py:96 "
+                     "select_candidates, parity_compress :164, "
+                     "parity_expand :173)",
+         "launches": main_res["launches"]["halfpass"],
+         "max_abs_err": max(b6_worst, odd_b6_worst),
+         **{k: head_b6[k] for k in keys},
+         "device_ms": head_b6["device_ms"], "shapes": b6_shapes,
+         "checks": b6_rows,
+         "launches_by_shape": main_res["launches_by_shape"]["halfpass"],
+         "pyramid_launches": split["launches"]},
     ]
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -53,6 +53,16 @@ SIGNATURES = {
                             _F, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P,
                             _P, _P, _P],
     "tsar_ransac_cluster": [],
+    "tsar_halfpass_prop_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                  ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                  _I, _P, _P, _P, _P, _P, _P, _P],
+    "tsar_halfpass_prop_accept": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "tsar_halfpass_refine_propose": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                     _P, _P, _P, _F, _F, _F, _F, _F, _F,
+                                     _P, _P, _P, _P, _P, _P],
+    "tsar_halfpass_refine_accept": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -155,7 +165,7 @@ def kernel_resources(log: str | None = None) -> list[str]:
         if m:
             k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel"
                           r"|direct_multiview_kernel|wmf_median_kernel"
-                          r"|ransac_\w+?_kernel)"
+                          r"|ransac_\w+?_kernel|halfpass_\w+?_kernel)"
                           r"(\w*)", m.group(1))
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \

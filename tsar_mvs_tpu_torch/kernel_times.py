@@ -1,6 +1,6 @@
 """Times of the CUDA kernels at every shape the main path launches them
 at, beside the least time the card could take, and PatchMatch's seconds
-split into kernel B1, kernel B2 and the torch code around them. Kernel B3
+split into kernels B1, B2 and B6 and the torch code around them. Kernel B3
 (the direct sampler) is timed at the shapes the direct path launches:
 the same grids and candidate counts as B1's.
 
@@ -17,6 +17,8 @@ the same grids and candidate counts as B1's.
         [--json OUT]
     python -m tsar_mvs_tpu_torch.kernel_times b5-parts <scene_dir>
         [--json OUT]
+    python -m tsar_mvs_tpu_torch.kernel_times b6 <scene_dir> [--json OUT]
+        [--before <older checkout's root>]
 
 `render` writes the 1344x2048, 8-view synthetic scene (images, cameras,
 pair.txt) and view 0's ground truth (`gt_view0.npz`) once (one spawned
@@ -49,6 +51,16 @@ each combination of the annealing's blocks a cluster, steps a pass
 and threads a block (`B5_DESIGN`) on view 0's regions, its chain and the
 "many" and "odd_steps" stress inputs; `b5-parts` times B5 there with
 each part of its annealing pass taken out (`B5_PARTS`).
+`b6` records the first propagation and refinement half-pass of every
+level of view 0's pyramid, on the scene and on chip_smoke.py phase
+8(e)'s 500x750 scene (whose levels 4 and 2 run dense), holds kernel B6
+(the half-pass around the cost kernel) to its plain version on each and
+on its stress input (`b6_stress`), times each B6 kernel there beside its
+bound, its plain version and its launches in one pyramid, then splits
+PatchMatch's seconds (`patchmatch_split`: wall, device busy, launches of
+every kind); with `--before` an older checkout's PatchMatch
+(`load_pm_before`: its models/patchmatch.py and ops/ncc.py) is split
+too, alternated before, this, this, before in one process.
 It measures through the functions the main path calls
 (`svolume.multiview_cost_svolume`, `cuda_warp.build_svolume_view`,
 `patchmatch.run_patchmatch_pyramid`). `chip_smoke.py` calls the same
@@ -177,7 +189,7 @@ def time_ms(fn, repeats: int, warmup: int = 1) -> float:
 def device_times(fn) -> dict | None:
     """Device microseconds and launch counts of one call of `fn`, by
     kernel: {"b1": [us, n], "b2": [us, n], "b3": [us, n], "b4": [us, n],
-    "other": [us, n],
+    "b6": [us, n], "other": [us, n] (every other kernel, copy and fill),
     "b1_each_us":
     B1's launches one by one in launch order} from torch.profiler, or None
     when the profiler reports no device activity (it sometimes drops a
@@ -192,7 +204,7 @@ def device_times(fn) -> dict | None:
             fn()
             torch.cuda.synchronize()
         groups = {"b1": [0.0, 0], "b2": [0.0, 0], "b3": [0.0, 0],
-                  "b4": [0.0, 0], "other": [0.0, 0]}
+                  "b4": [0.0, 0], "b6": [0.0, 0], "other": [0.0, 0]}
         b1_each = []
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
@@ -200,7 +212,8 @@ def device_times(fn) -> dict | None:
             key = ("b1" if "svol_ncc" in e.name
                    else "b2" if "warp_build" in e.name
                    else "b3" if "direct_multiview" in e.name
-                   else "b4" if "wmf_median" in e.name else "other")
+                   else "b4" if "wmf_median" in e.name
+                   else "b6" if "halfpass_" in e.name else "other")
             groups[key][0] += e.time_range.elapsed_us()
             groups[key][1] += 1
             if key == "b1":
@@ -722,19 +735,21 @@ def time_b2_level(lv: dict) -> dict:
     return res
 
 
-def launch_plan(scene, params) -> list[dict]:
-    """Cost evaluations and volume builds of the main path per level, from
-    the schedule `run_patchmatch_pyramid` follows: per iteration and
-    parity one propagation evaluation (C = banks) and one refinement
-    evaluation per refine scale (C = 1); one dense evaluation for the
-    random initialisation of the coarsest level; one build per source."""
+def launch_plan(scene, params, levels=LEVELS) -> list[dict]:
+    """Cost evaluations and volume builds of the main path per level of
+    `levels` (process_view's are pipeline.pyramid_levels_for the image
+    height), from the schedule `run_patchmatch_pyramid` follows: per
+    iteration and parity one propagation evaluation (C = banks) and one
+    refinement evaluation per refine scale (C = 1); one dense evaluation
+    for the random initialisation of the coarsest level; one build per
+    source."""
     from tsar_mvs_tpu_torch import geometry as geo
     from tsar_mvs_tpu_torch import pipeline
     from tsar_mvs_tpu_torch.models import patchmatch as pm
     order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
-    iters = pm.iteration_schedule(params, len(LEVELS))
+    iters = pm.iteration_schedule(params, len(levels))
     plan = []
-    for li, level in enumerate(LEVELS):
+    for li, level in enumerate(levels):
         cams = geo.build_camera_set([scene.P[i] for i in order],
                                     cam_scale=float(level) * params.cam_scale,
                                     depth_min=scene.depth_min,
@@ -780,14 +795,17 @@ def b1_seconds_by_kind(plan: list[dict], each_us: list[float]) -> dict:
     return out
 
 
-def pyramid_runner(scene, params, dev):
+def pyramid_runner(scene, params, dev, pm=None):
     """A function that runs view 0's `run_patchmatch_pyramid` as
     `process_view` does, from a generator seeded 0; with
     `color_processing` on the views' `color_from_gray` channels (the
-    values chip_smoke.py's colour export holds)."""
+    values chip_smoke.py's colour export holds). `pm`: the patchmatch
+    module to run (default this package's; `load_pm_before` gives an
+    older checkout's)."""
     import torch
     from tsar_mvs_tpu_torch import pipeline
-    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    if pm is None:
+        from tsar_mvs_tpu_torch.models import patchmatch as pm
     order, view_ids = pipeline.view_image_order(scene, 0, params.max_views)
     imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
                            device=dev)
@@ -806,13 +824,15 @@ def pyramid_runner(scene, params, dev):
     return run
 
 
-def patchmatch_split(scene, params, dev) -> dict:
+def patchmatch_split(scene, params, dev, pm=None, label: str = "") -> dict:
     """Seconds of one `run_patchmatch_pyramid` of view 0 (host clock,
     synchronised, after a warm-up run) and, from a profiled third run,
-    the device seconds inside it of kernels B1, B2 and B3 and of every
-    other kernel and copy, with their launch counts."""
+    the device seconds inside it of kernels B1, B2, B3 and B6 and of every
+    other kernel and copy, with their launch counts, the device's busy
+    seconds and the launches of every kind ("launches": kernels, copies
+    and fills). `pm` as in pyramid_runner."""
     import torch
-    run = pyramid_runner(scene, params, dev)
+    run = pyramid_runner(scene, params, dev, pm)
     run()
     torch.cuda.synchronize()
     seconds = []
@@ -831,9 +851,10 @@ def patchmatch_split(scene, params, dev) -> dict:
                          for k, (us, n) in dt.items()}
         busy = sum(us for us, _ in dt.values()) / 1e6
         res["device_busy_s"] = busy
+        res["launches"] = sum(n for _, n in dt.values())
         res["rest_s"] = min(seconds) - sum(dt[k][0] for k in
-                                           ("b1", "b2", "b3")) / 1e6
-    print("patchmatch split: "
+                                           ("b1", "b2", "b3", "b6")) / 1e6
+    print(f"patchmatch split{label}: "
           + json.dumps({k: v for k, v in res.items() if k != "b1_each_us"}),
           flush=True)
     return res
@@ -1313,16 +1334,21 @@ def recording_ransac_inputs(calls: list, fits: list | None = None):
         tsar.fit_region_planes = inner_fit
 
 
-def view_inputs(scene, params, dev, view: int = 0, wmf: bool = True) -> dict:
+def view_inputs(scene, params, dev, view: int = 0, wmf: bool = True,
+                halfpass: bool = False) -> dict:
     """The inputs of view `view`'s WMF passes ("wmf"; none without
-    `wmf`), of its RANSAC call ("ransac", RansacInputs) and of its
-    fit_region_planes ("fit") as `process_view` with `params` gives them
-    (one run, its artifacts in a temporary directory)."""
+    `wmf`), of its RANSAC call ("ransac", RansacInputs), of its
+    fit_region_planes ("fit") and, with `halfpass`, of each pyramid
+    level's first propagation and refinement half-pass ("halfpass",
+    recording_halfpasses) as `process_view` with `params` gives them (one
+    run, its artifacts in a temporary directory)."""
     import tempfile
     from tsar_mvs_tpu_torch import pipeline
-    calls: dict = {"wmf": [], "ransac": [], "fit": []}
+    calls: dict = {"wmf": [], "ransac": [], "fit": [], "halfpass": []}
     with tempfile.TemporaryDirectory() as tmp, \
             (recording_wmf_inputs(calls["wmf"]) if wmf
+             else contextlib.nullcontext()), \
+            (recording_halfpasses(calls["halfpass"]) if halfpass
              else contextlib.nullcontext()), \
             recording_ransac_inputs(calls["ransac"], calls["fit"]):
         pipeline.process_view(scene, view, params, out_dir=Path(tmp),
@@ -1822,6 +1848,403 @@ def time_b5_parts(inputs: dict) -> dict:
     return time_b5_variants(b5_variant_sources(edits), inputs, "B5 parts")
 
 
+# ---------------------------------------------------------------------------
+# Kernel B6: the checkerboard half-pass around the cost kernel
+# ---------------------------------------------------------------------------
+
+# Float operations of B6's function, whatever computes it: prop_select a
+# bank and position (the sample compares, 1 / d and three 3-term dots
+# with their scalings: 11 + 1 + 15 + 3), prop_accept a bank and position
+# (the depth 8, the range 2, the accept 1), refine_propose a position (the
+# depth and disparity 10, the step 9, the normal 9 + 6 + 3 + 5 + 3, the
+# plane 6 and its scalars 19), refine_accept a position (the compare).
+B6_FLOPS = {"prop_select": 30, "prop_accept": 11, "refine_propose": 70,
+            "refine_accept": 1}
+
+
+def b6_bytes(kernel: str, H: int, W: int, Hc: int, Wc: int, banks: int,
+             taken: int) -> int:
+    """Bytes B6's `kernel` must move: each input read once, each output
+    written once; the accepts write the `taken` positions' planes, costs,
+    ratios and views (28 B) and read only their winners' ratio and view.
+    The rays and view vectors are not counted: they follow from (x, y) and
+    the 13 constants, so the function need not read them.
+    prop_select: the state's normal, d and cost (20 B a pixel) read, per
+    bank and position the plane, valid flag and scalars written (29 B);
+    prop_accept: per bank and position the plane, flag and cost read
+    (21 B), the stored cost read (4 B a position); refine_propose: the
+    plane at the position (16 B) and the draws (16 B) read, the plane and
+    scalars written (28 B); refine_accept: the proposal's cost and the
+    stored cost read (8 B a position), the taken plane and ratio and view
+    read (24 B a taken position)."""
+    n = Hc * Wc
+    if kernel == "prop_select":
+        return 20 * H * W + 29 * banks * n
+    if kernel == "prop_accept":
+        return 21 * banks * n + 4 * n + (28 + 8) * taken
+    if kernel == "refine_propose":
+        return (16 + 16 + 28) * n
+    return 8 * n + (24 + 28) * taken
+
+
+def b6_bound(kernel: str, H: int, W: int, Hc: int, Wc: int, banks: int,
+             taken: int) -> dict:
+    """The least time of B6's `kernel` at a shape: the larger of its
+    bytes (b6_bytes) over 3.35 TB/s and its operations (B6_FLOPS) over 67
+    TFLOP/s."""
+    nbytes = b6_bytes(kernel, H, W, Hc, Wc, banks, taken)
+    per = banks if kernel.startswith("prop") else 1
+    flops = B6_FLOPS[kernel] * per * Hc * Wc
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+@contextlib.contextmanager
+def recording_halfpasses(calls: list):
+    """While open, the first propagation and the first refinement
+    half-pass on each grid (every level) append their inputs to `calls`:
+    {"kind", "shape" (H, W), "parity", "state" (a copy), "grid",
+    "cost_fn", "banks" or "sched" and "draws" (the refinement's, drawn
+    from its generator in the order the pass draws them), "min_disp",
+    "max_disp"}; the passes then run as before (on the recorded draws).
+    It hooks hp.propagation and hp.refinement, which every PatchMatch
+    path calls."""
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch.ops import halfpass as hp
+    prop, refine = hp.propagation, hp.refinement
+    seen = set()
+
+    def first(kind, state):
+        key = (kind, state.shape)
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+
+    def rec_prop(state, parity, banks, grid, cost_fn, plain=False):
+        if first("propagation", state):
+            calls.append({"kind": "propagation", "shape": state.shape,
+                          "parity": parity, "state": pm._own(state),
+                          "grid": grid, "cost_fn": cost_fn,
+                          "banks": banks})
+        return prop(state, parity, banks, grid, cost_fn, plain)
+
+    def rec_refine(state, parity, grid, cost_fn, sched, draws, min_disp,
+                   max_disp, plain=False):
+        if sched and first("refinement", state):
+            draws = list(draws)
+            calls.append({"kind": "refinement", "shape": state.shape,
+                          "parity": parity, "state": pm._own(state),
+                          "grid": grid, "cost_fn": cost_fn, "sched": sched,
+                          "draws": draws, "min_disp": min_disp,
+                          "max_disp": max_disp})
+        return refine(state, parity, grid, cost_fn, sched, draws, min_disp,
+                      max_disp, plain)
+
+    hp.propagation, hp.refinement = rec_prop, rec_refine
+    try:
+        yield calls
+    finally:
+        hp.propagation, hp.refinement = prop, refine
+
+
+def b6_run(call: dict, plain: bool = False):
+    """A recorded half-pass run again on a copy of its state: kernel B6
+    (or, with `plain`, its plain versions) around the recorded cost
+    function. Returns the state."""
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch.ops import halfpass as hp
+    state = pm._own(call["state"])
+    if call["kind"] == "propagation":
+        hp.propagation(state, call["parity"], call["banks"], call["grid"],
+                       call["cost_fn"], plain=plain)
+    else:
+        hp.refinement(state, call["parity"], call["grid"], call["cost_fn"],
+                      call["sched"], call["draws"], call["min_disp"],
+                      call["max_disp"], plain=plain)
+    return state
+
+
+def nan_equal_err(a, b) -> float:
+    """Largest |a - b| where both are numbers, +inf where one is NaN and
+    the other not (equal NaNs and equal infinities count 0)."""
+    import torch
+    a, b = a.double(), b.double()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    if (torch.isnan(a) ^ torch.isnan(b)).any():
+        return float("inf")
+    same = (a == b) | both_nan
+    if bool(same.all()):
+        return 0.0
+    return float((a - b)[~same].abs().max())
+
+
+def b6_agreement(mk, mp) -> dict:
+    """Per field of two results of B6 (two PlaneStates, Candidates or
+    Proposals): the largest |delta| (nan_equal_err; an int field's count
+    of mismatches), and their largest float delta as "max_abs_err"."""
+    import torch
+    out = {}
+    for name, a, b in zip(mp._fields, mk, mp):
+        if a.dtype in (torch.int32, torch.int64, torch.bool):
+            out[name + "_mismatches"] = int((a != b).sum())
+        else:
+            out[name] = nan_equal_err(a, b)
+    out["max_abs_err"] = max(v for k, v in out.items()
+                             if not k.endswith("_mismatches"))
+    out["mismatches"] = sum(v for k, v in out.items()
+                            if k.endswith("_mismatches"))
+    return out
+
+
+def taken_count(new, old) -> int:
+    """Pixels whose cost an accept changed (a NaN kept counts as kept)."""
+    import torch
+    return int((~((new == old) | (torch.isnan(new) & torch.isnan(old))))
+               .sum())
+
+
+def b6_check(call: dict) -> dict:
+    """B6 against its plain version on a recorded half-pass: its first
+    kernel's outputs (prop_select's candidates or refine_propose's first
+    proposal) and the states after the whole half-pass, with the launches
+    of the kernel's run."""
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch.ops import cuda_halfpass
+    from tsar_mvs_tpu_torch.ops import halfpass as hp
+    st, parity, grid = call["state"], call["parity"], call["grid"]
+    if call["kind"] == "propagation":
+        first = b6_agreement(
+            hp.prop_select(st, parity, call["banks"], grid),
+            hp.prop_select_plain(st, parity, call["banks"], grid))
+    else:
+        (dz, dn), (u, r) = call["sched"][0], call["draws"][0]
+        args = (st, parity, grid, u, r, call["min_disp"], call["max_disp"],
+                dz, dn)
+        first = b6_agreement(hp.refine_propose(*args),
+                             hp.refine_propose_plain(*args))
+    n0 = cuda_halfpass.LAUNCHES
+    mk = b6_run(call)
+    launches = cuda_halfpass.LAUNCHES - n0
+    mp = b6_run(call, plain=True)
+    whole = b6_agreement(mk, mp)
+    changed = taken_count(mk.cost, st.cost)
+    H, W = call["shape"]
+    return {"kind": call["kind"], "grid": list(hp.grid_shape(grid, H, W)),
+            "packed": grid.packed, "shape": [H, W], "parity": parity,
+            "banks": len(call.get("banks", ())), "launches": launches,
+            "taken": changed, "first_kernel": first, "state": whole,
+            "max_abs_err": max(first["max_abs_err"], whole["max_abs_err"]),
+            "mismatches": first["mismatches"] + whole["mismatches"]}
+
+
+def b6_stress(call: dict, seed: int = 0) -> dict:
+    """A recorded half-pass's inputs made into B6's stress input: the
+    state's planes zeroed (d = 0 and normal 0, as border padding) on 5%
+    of pixels, NaN in d on 2% (NaN depths) and in the cost on 1%, +inf
+    costs on 2% (all-inf banks where they meet), and the cost rounded to
+    1/8 on the rest so that bank samples tie; a refinement's draws keep
+    u = 0 and 1 - 2^-24 on 1% of positions each."""
+    import torch
+    gen = torch.Generator(device=call["state"].d.device).manual_seed(seed)
+    st = call["state"]
+    dev = st.d.device
+
+    def mask(p):
+        return torch.rand(st.d.shape, generator=gen, device=dev) < p
+    zero, nan_d, nan_c, inf_c = mask(0.05), mask(0.02), mask(0.01), mask(0.02)
+    normal = torch.where(zero[..., None], 0.0, st.normal)
+    d = torch.where(zero, 0.0, st.d)
+    d = torch.where(nan_d, float("nan"), d)
+    cost = torch.round(st.cost * 8.0) / 8.0
+    cost = torch.where(nan_c, float("nan"), cost)
+    cost = torch.where(inf_c, float("inf"), cost)
+    out = dict(call, state=st._replace(normal=normal.contiguous(), d=d,
+                                       cost=cost))
+    if call["kind"] == "refinement":
+        draws = []
+        for u, r in call["draws"]:
+            lo = torch.rand(u.shape, generator=gen, device=dev) < 0.01
+            hi = torch.rand(u.shape, generator=gen, device=dev) < 0.01
+            u = torch.where(lo, 0.0, torch.where(hi, 1.0 - 2.0 ** -24, u))
+            draws.append((u, r))
+        out["draws"] = draws
+    return out
+
+
+def on_copies(f, state, n: int):
+    """A call of f(copy) on the next of `n` copies of `state`, all made
+    now (outside whatever times the calls)."""
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    copies = iter([pm._own(state) for _ in range(n)])
+    return lambda: f(next(copies))
+
+
+def time_b6(calls: list, by_shape=None) -> list[dict]:
+    """Each B6 kernel at each recorded half-pass's grid: its ms (CUDA
+    events around 20 calls after a warm-up, a mean: the wrapper's host
+    time between the launches included), its device_ms (the profiler's
+    device time of the kernel, a mean over 20 launches; None when the
+    trace is dropped), both for the accepts each on a fresh copy of the
+    recorded state (on_copies), the plain version's ms (a mean of 3), its
+    bound (b6_bound, with the positions each accept takes) and, from
+    `by_shape` (cuda_halfpass.LAUNCHES_BY_SHAPE of a main-path run), its
+    launches at that shape."""
+    from tsar_mvs_tpu_torch.models import patchmatch as pm
+    from tsar_mvs_tpu_torch.ops import halfpass as hp
+    out = []
+    for call in calls:
+        st, parity, grid = call["state"], call["parity"], call["grid"]
+        H, W = call["shape"]
+        Hc, Wc = hp.grid_shape(grid, H, W)
+        cost_fn = call["cost_fn"]
+        if call["kind"] == "propagation":
+            banks = call["banks"]
+            B = len(banks)
+            cands = hp.prop_select(st, parity, banks, grid)
+            mv = cost_fn(cands.normal, cands.d,
+                         parity if grid.packed else None,
+                         scalars=(cands.s0, cands.sx, cands.sy))
+            runs = {"prop_select": (
+                        lambda: hp.prop_select(st, parity, banks, grid),
+                        lambda: hp.prop_select_plain(st, parity, banks,
+                                                     grid)),
+                    "prop_accept": (
+                        lambda s: hp.prop_accept(s, parity, cands, mv, grid),
+                        lambda s: hp.prop_accept_plain(s, parity, cands, mv,
+                                                       grid))}
+        else:
+            B = 1
+            (dz, dn), (u, r) = call["sched"][0], call["draws"][0]
+            args = (st, parity, grid, u, r, call["min_disp"],
+                    call["max_disp"], dz, dn)
+            prop = hp.refine_propose(*args)
+            mv = cost_fn(prop.normal, prop.d,
+                         parity if grid.packed else None,
+                         scalars=(prop.s0, prop.sx, prop.sy))
+            runs = {"refine_propose": (
+                        lambda: hp.refine_propose(*args),
+                        lambda: hp.refine_propose_plain(*args)),
+                    "refine_accept": (
+                        lambda s: hp.refine_accept(s, parity, grid, prop,
+                                                   mv),
+                        lambda s: hp.refine_accept_plain(s, parity, grid,
+                                                         prop, mv))}
+        for kernel, (fk, fp) in runs.items():
+            taken = 0
+            if kernel.endswith("accept"):
+                # Every timed call updates a fresh copy of the recorded
+                # state, made before the timing, so it writes what the
+                # bound counts: the positions the first call takes.
+                sk = pm._own(st)
+                fk(sk)
+                taken = taken_count(sk.cost, st.cost)
+                del sk
+                ms = time_ms(on_copies(fk, st, 21), 20)
+                plain_ms = time_ms(on_copies(fp, st, 4), 3)
+                # device_times may call twice: 40 copies.
+                run_k = on_copies(fk, st, 40)
+                dt = device_times(lambda: [run_k() for _ in range(20)])
+            else:
+                ms = time_ms(fk, 20)
+                plain_ms = time_ms(fp, 3)
+                dt = device_times(lambda: [fk() for _ in range(20)])
+            res = {"kernel": kernel, "kind": call["kind"], "grid": [Hc, Wc],
+                   "packed": grid.packed, "banks": B, "ms": ms,
+                   "device_ms": (dt["b6"][0] / dt["b6"][1] / 1e3
+                                 if dt and dt["b6"][1] else None),
+                   "plain_ms": plain_ms, "library_ms": None,
+                   **b6_bound(kernel, H, W, Hc, Wc, B, taken),
+                   "taken": taken}
+            if by_shape is not None:
+                res["launches"] = by_shape.get((kernel, Hc, Wc, B), 0)
+            print(f"B6 shape: {json.dumps(res)}", flush=True)
+            out.append(res)
+    return out
+
+
+def b6_launches(plan: list[dict]) -> int:
+    """Kernel B6's launches in one view's pyramid: two a propagation
+    half-pass (select, accept) and two a refine scale (propose, accept)."""
+    return sum(2 * p["propagation"] + 2 * p["refinement"] for p in plan)
+
+
+def load_pm_before(checkout: str):
+    """An older checkout's PatchMatch as a module of its own: its
+    `models/patchmatch.py` on its own `ops/ncc.py` (the reference
+    statistics); their other imports resolve to this package."""
+    import importlib.util
+    root = Path(checkout) / "tsar_mvs_tpu_torch"
+
+    def load(name: str, rel: str):
+        spec = importlib.util.spec_from_file_location(f"{name}_before",
+                                                      root / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    pm = load("patchmatch", "models/patchmatch.py")
+    pm.ncc = load("ncc", "ops/ncc.py")
+    return pm
+
+
+def odd_scene(tmp: Path):
+    """view 0's scene of chip_smoke.py phase 8(e)'s odd case: make_scene(500,
+    750), 4 views, exported under `tmp` and loaded (its levels 4 and 2
+    have an odd side: dense half-passes)."""
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.utils.synthetic import make_scene
+    sg = make_scene(height=500, width=750, num_views=4, seed=0)
+    return pipeline.load_scene(sg.export(tmp / "odd"))
+
+
+def time_b6_all(scene, dev, before: str | None) -> dict:
+    """B6 on view 0's pyramid of `scene` and of the odd scene: each
+    level's first propagation and refinement half-pass recorded, checked
+    against the plain version (b6_check) and timed (time_b6, launches
+    from one run of the pyramid), then PatchMatch's split; with `before`
+    (an older checkout's root) that checkout's PatchMatch too
+    (load_pm_before), alternated before, this, this, before."""
+    import tempfile
+    import torch
+    from tsar_mvs_tpu_torch import pipeline
+    from tsar_mvs_tpu_torch.ops import cuda_halfpass
+    params = pipeline.default_params_for_scene(scene)
+    out: dict = {"checks": [], "shapes": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, sc in (("2K", scene), ("odd", odd_scene(Path(tmp)))):
+            p = pipeline.default_params_for_scene(sc)
+            calls: list = []
+            with recording_halfpasses(calls):
+                pyramid_runner(sc, p, dev)()
+            cuda_halfpass.LAUNCHES_BY_SHAPE.clear()
+            pyramid_runner(sc, p, dev)()
+            by_shape = dict(cuda_halfpass.LAUNCHES_BY_SHAPE)
+            for call in calls:
+                for case, c in (("recorded", call),
+                                ("stress", b6_stress(call))):
+                    r = {"scene": name, "case": case, **b6_check(c)}
+                    print(f"B6 check: {json.dumps(r)}", flush=True)
+                    out["checks"].append(r)
+            for r in time_b6(calls, by_shape):
+                out["shapes"].append({"scene": name, **r})
+            del calls
+            torch.cuda.empty_cache()
+    runs = [("this", None)]
+    if before is not None:
+        old = load_pm_before(before)
+        runs = [("before", old), ("this", None), ("this", None),
+                ("before", old)]
+    out["split"] = []
+    for label, pm in runs:
+        torch.cuda.empty_cache()
+        res = patchmatch_split(scene, params, dev, pm, f" ({label})")
+        res.pop("b1_each_us", None)
+        out["split"].append({"run": label, **res})
+    return out
+
+
 def time_all(scene, gt: dict, dev) -> dict:
     """Every B1, B2 and B3 shape, level by level (one level's volumes live
     at a time), B1's windows on the last level, then the PatchMatch
@@ -1848,14 +2271,16 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tsar_mvs_tpu_torch.kernel_times")
     p.add_argument("command", choices=("render", "time", "b3", "b4",
                                         "b4-parts", "b5", "b5-design",
-                                        "b5-parts"))
+                                        "b5-parts", "b6"))
     p.add_argument("scene_dir")
     p.add_argument("--json", default=None, help="write the results here")
     p.add_argument("--before", default=None,
                    help="b4: the ops/wmf.py of a checkout from before B4 "
                         "(its plain WMF) to time beside; b5: the root of "
                         "an older checkout, whose B5 kernel (built from "
-                        "its own csrc/) and ransac stage are timed beside")
+                        "its own csrc/) and ransac stage are timed beside; "
+                        "b6: the root of an older checkout, whose "
+                        "PatchMatch is timed beside")
     ns = p.parse_args(argv)
     scene_dir = Path(ns.scene_dir)
     if ns.command == "render":
@@ -1877,6 +2302,8 @@ def main(argv: list[str] | None = None) -> int:
         res = time_b4_all(scene, dev, ns.before)
     elif ns.command == "b5":
         res = time_b5_all(scene, dev, ns.before)
+    elif ns.command == "b6":
+        res = time_b6_all(scene, dev, ns.before)
     elif ns.command in ("b5-design", "b5-parts"):
         from tsar_mvs_tpu_torch.config import AlgorithmParams
         inp = view_inputs(scene, AlgorithmParams(), dev, wmf=False)[

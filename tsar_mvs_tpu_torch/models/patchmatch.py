@@ -10,6 +10,10 @@ and the direct sampler (kernel B3), which also serves `n_best > 1` and
 checkerboard-packed (H, W/2) layout when H and W are even; otherwise (an
 odd-sided pyramid level) they evaluate on the dense grid and update only
 the parity's pixels, as the JAX package does.
+The work around the cost of a half-pass (candidate selection, the
+refine proposals and the accepts) is kernel B6 on the card and its plain
+version on the CPU (``ops/halfpass.py``); it updates the state in place,
+and `_iterate` does so on its own copy of a lifted state.
 
 ``run_patchmatch_many`` runs a batch of reference views from a SceneBatch
 of per-slot warp factors (the unit of the view-sharded scene,
@@ -33,6 +37,7 @@ from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops import cuda_direct, ncc, ncc_color
+from tsar_mvs_tpu_torch.ops import halfpass as hp
 from tsar_mvs_tpu_torch.ops import svolume as sv
 
 NCC_IMPLS = ("auto", "svolume", "direct")
@@ -102,6 +107,12 @@ def prop_bank_count(params: AlgorithmParams) -> int:
     package's `[-0:]` slice does; so does any count >= 8."""
     n = params.prop_banks
     return n if 0 < n < len(cb.BANKS) else len(cb.BANKS)
+
+
+def prop_banks(params: AlgorithmParams):
+    """The banks of a propagation pass: the last prop_bank_count of
+    cb.BANKS."""
+    return cb.BANKS[len(cb.BANKS) - prop_bank_count(params):]
 
 
 def svolume_plane_counts(cams: geo.CameraSet, view_ids, height: int,
@@ -212,156 +223,91 @@ def make_parity_ctx(stats_by_parity, cams: geo.CameraSet, height: int,
         vv=tuple(cb.parity_compress_vec(vv, p) for p in (0, 1)))
 
 
-def _compress_state(state: PlaneState, parity: int) -> PlaneState:
-    return PlaneState(normal=cb.parity_compress_vec(state.normal, parity),
-                      d=cb.parity_compress(state.d, parity),
-                      cost=cb.parity_compress(state.cost, parity),
-                      ratio=cb.parity_compress(state.ratio, parity),
-                      best_view=cb.parity_compress(state.best_view, parity))
-
-
-def _expand_state(packed: PlaneState, state: PlaneState,
-                  parity: int) -> PlaneState:
-    return PlaneState(
-        normal=cb.parity_expand_vec(packed.normal, state.normal, parity),
-        d=cb.parity_expand(packed.d, state.d, parity),
-        cost=cb.parity_expand(packed.cost, state.cost, parity),
-        ratio=cb.parity_expand(packed.ratio, state.ratio, parity),
-        best_view=cb.parity_expand(packed.best_view, state.best_view,
-                                   parity))
-
-
-def _take(take: torch.Tensor, new: PlaneState,
-          cur: PlaneState) -> PlaneState:
-    return PlaneState(normal=torch.where(take[..., None], new.normal,
-                                         cur.normal),
-                      d=torch.where(take, new.d, cur.d),
-                      cost=torch.where(take, new.cost, cur.cost),
-                      ratio=torch.where(take, new.ratio, cur.ratio),
-                      best_view=torch.where(take, new.best_view,
-                                            cur.best_view))
+def _own(state: PlaneState) -> PlaneState:
+    """A contiguous copy of `state` that the half-passes may update in
+    place."""
+    return PlaneState(*(t.clone(memory_format=torch.contiguous_format)
+                        for t in state))
 
 
 def _propagation_pass(state: PlaneState, parity: int, cost_fn,
                       cams: geo.CameraSet, params: AlgorithmParams,
                       pctx: ParityCtx | None) -> PlaneState:
-    """One checkerboard propagation half-pass: each pixel of `parity`
-    evaluates its bank candidates (one batched multi-view evaluation over
-    the bank axis) and keeps the cheapest in-range one. With `pctx` None
-    (odd sides) the candidates are evaluated on the dense grid and only
-    the parity's pixels take them."""
-    banks = cb.BANKS[len(cb.BANKS) - prop_bank_count(params):]
-    cands = cb.select_candidates(state.normal, state.d, state.cost, banks)
-    if pctx is None:
-        H, W = state.shape
-        xx, yy = geo.pixel_grid(H, W, state.d.device)
-        cand_n, cand_d, cand_valid = cands.normal, cands.d, cands.valid
-        best = state
-    else:
-        xx, yy = pctx.coords[parity]
-        cand_n = cb.parity_compress_vec(cands.normal, parity)
-        cand_d = cb.parity_compress(cands.d, parity)
-        cand_valid = cb.parity_compress(cands.valid, parity)
-        best = _compress_state(state, parity)
-
-    mv = cost_fn(cand_n, cand_d, None if pctx is None else parity)
-    depth_at_p = geo.depth_from_plane(cams, cand_n, cand_d, xx, yy)
-    in_borders = ((depth_at_p >= cams.depth_min)
-                  & (depth_at_p <= cams.depth_max))
-    cand_cost = torch.where(cand_valid & in_borders, mv.cost, float("inf"))
-    for k in range(cand_d.shape[0]):
-        take = cand_cost[k] < best.cost
-        best = _take(take, PlaneState(cand_n[k], cand_d[k], cand_cost[k],
-                                      mv.ratio[k], mv.best_view[k]), best)
-    if pctx is None:
-        return _take(cb.parity_mask(H, W, parity, state.d.device), best,
-                     state)
-    return _expand_state(best, state, parity)
+    """One checkerboard propagation half-pass on a copy of `state`: each
+    pixel of `parity` evaluates its bank candidates (one batched
+    multi-view evaluation over the bank axis, on the plane scalars the
+    selection computed) and keeps the cheapest in-range one. With `pctx`
+    None (odd sides) the candidates are evaluated on the dense grid and
+    only the parity's pixels take them. Kernel B6 (ops/halfpass.py)
+    selects and accepts on CUDA tensors, its plain version on CPU
+    tensors."""
+    state = _own(state)
+    hp.propagation(state, parity, prop_banks(params),
+                   hp.make_grid(cams, *state.shape, pctx), cost_fn)
+    return state
 
 
 def _refinement_pass(state: PlaneState, parity: int,
                      generator: torch.Generator, cost_fn,
                      cams: geo.CameraSet, params: AlgorithmParams,
                      pctx: ParityCtx | None) -> PlaneState:
-    """One checkerboard refinement half-pass: a random search in
-    (disparity, normal) over the shrinking scales of refine_schedule, with
-    sequential accepts (each scale perturbs the previous scale's result).
-    With `pctx` None (odd sides) the draws and evaluations cover the dense
-    grid and only the parity's pixels accept."""
+    """One checkerboard refinement half-pass on a copy of `state`: a
+    random search in (disparity, normal) over the shrinking scales of
+    refine_schedule, with sequential accepts (each scale perturbs the
+    previous scale's result); each scale draws hp.draw_refine from
+    `generator` before its proposal. With `pctx` None (odd sides) the
+    draws and evaluations cover the dense grid and only the parity's
+    pixels accept. Kernel B6 proposes and accepts on CUDA tensors, its
+    plain version on CPU tensors."""
     sched = refine_schedule(params)
     if not sched:
         return state
-    f, b = cams.f, cams.baseline
-    dev = state.d.device
-    if pctx is None:
-        H, W = state.shape
-        xx, yy = geo.pixel_grid(H, W, dev)
-        vv = geo.view_vectors(cams, H, W)
-        rays = geo.pixel_rays(cams, H, W)
-        upd = cb.parity_mask(H, W, parity, dev)
-        cur = state
-    else:
-        xx, yy = pctx.coords[parity]
-        vv = pctx.vv[parity]
-        rays = pctx.rays[parity]
-        upd = None
-        cur = _compress_state(state, parity)
-    shape = tuple(cur.d.shape)
-    for delta_z, delta_n in sched:
-        depth_now = geo.depth_from_plane(cams, cur.normal, cur.d, xx, yy)
-        disp_now = geo.disparity_depth(f, b, depth_now)
-        min_delta = -torch.clamp(params.min_disparity + disp_now,
-                                 max=delta_z)
-        max_delta = torch.clamp(params.max_disparity - disp_now,
-                                max=delta_z)
-        u = torch.rand(shape, generator=generator, device=dev)
-        dz = min_delta + u * (max_delta - min_delta)
-        disp_new = torch.clamp(disp_now + dz, params.min_disparity,
-                               params.max_disparity)
-        depth_new = geo.disparity_depth(f, b, disp_new)
-        dn = -delta_n + 2.0 * delta_n * torch.rand(
-            shape + (3,), generator=generator, device=dev)
-        n_new = geo.hemisphere_flip(geo.normalize(cur.normal + dn), vv)
-        d_new = geo.plane_d_from_depth(n_new, rays, depth_new)
-        mv = cost_fn(n_new, d_new, None if pctx is None else parity)
-        take = mv.cost < cur.cost
-        if upd is not None:
-            take = take & upd
-        cur = _take(take, PlaneState(n_new, d_new, mv.cost, mv.ratio,
-                                     mv.best_view), cur)
-    if pctx is None:
-        return cur
-    return _expand_state(cur, state, parity)
+    state = _own(state)
+    grid = hp.make_grid(cams, *state.shape, pctx)
+    hp.refinement(state, parity, grid, cost_fn, sched,
+                  hp.refine_draws(generator, grid, state, len(sched)),
+                  params.min_disparity, params.max_disparity)
+    return state
 
 
 def make_patchmatch_step(cost_fn, cams: geo.CameraSet,
-                         params: AlgorithmParams, pctx: ParityCtx | None):
+                         params: AlgorithmParams, pctx: ParityCtx | None,
+                         rays: torch.Tensor):
     """One iteration: black propagation, black refinement, red
-    propagation, red refinement. Returns step(state, generator)."""
+    propagation, red refinement, each in place (hp.propagation and
+    hp.refinement on the level's grid). Returns step(state, generator),
+    which updates `state` (contiguous; _own makes such a copy) and
+    returns it. `rays` (H, W, 3) are the dense grid's."""
+    grid = hp.make_grid(cams, *rays.shape[:2], pctx, rays)
+    banks, sched = prop_banks(params), refine_schedule(params)
+
     def step(state: PlaneState, generator: torch.Generator) -> PlaneState:
         for parity in (0, 1):
-            state = _propagation_pass(state, parity, cost_fn, cams, params,
-                                      pctx)
-            state = _refinement_pass(state, parity, generator, cost_fn,
-                                     cams, params, pctx)
+            hp.propagation(state, parity, banks, grid, cost_fn)
+            hp.refinement(state, parity, grid, cost_fn, sched,
+                          hp.refine_draws(generator, grid, state, len(sched)),
+                          params.min_disparity, params.max_disparity)
         return state
     return step
 
 
 def _make_cost_and_ctx(stats, cams: geo.CameraSet, height: int, width: int,
                        eval_cost, compress):
-    """cost_fn(normal, d, parity) -> MultiviewCost and the ParityCtx of the
-    packed passes, from eval_cost(normal, d, stats, parity) and the stats'
-    parity compressor; with odd sides a dense-only cost_fn and pctx None."""
+    """cost_fn(normal, d, parity, scalars=None) -> MultiviewCost and the
+    ParityCtx of the packed passes, from eval_cost(normal, d, stats,
+    parity, scalars) and the stats' parity compressor; with odd sides a
+    dense-only cost_fn and pctx None. `scalars` are the planes' (s0, sx,
+    sy) when the caller has them (kernel B6 computes them with the
+    candidates); else the cost function computes them."""
     if not cb.parity_compressible(height, width):
-        def dense_cost_fn(normal, d, parity=None):
-            return eval_cost(normal, d, stats, None)
+        def dense_cost_fn(normal, d, parity=None, scalars=None):
+            return eval_cost(normal, d, stats, None, scalars)
         return dense_cost_fn, None
     stats_p = {None: stats, 0: compress(stats, 0), 1: compress(stats, 1)}
     pctx = make_parity_ctx(stats_p, cams, height, width)
 
-    def cost_fn(normal, d, parity=None):
-        return eval_cost(normal, d, stats_p[parity], parity)
+    def cost_fn(normal, d, parity=None, scalars=None):
+        return eval_cost(normal, d, stats_p[parity], parity, scalars)
     return cost_fn, pctx
 
 
@@ -371,9 +317,9 @@ def make_svolume_cost_fn(stats: ncc.RefStats, cams: geo.CameraSet,
     """cost_fn(normal, d, parity) -> MultiviewCost on the s-volume, with
     parity None the dense grid and 0/1 the packed classes; and the
     ParityCtx of the packed passes (None for odd sides)."""
-    def eval_cost(normal, d, st, parity):
+    def eval_cost(normal, d, st, parity, scalars):
         return sv.multiview_cost_svolume(vol, ids, normal, d, st, params,
-                                         parity=parity)
+                                         parity=parity, scalars=scalars)
     return _make_cost_and_ctx(stats, cams, height, width, eval_cost,
                               ncc.compress_stats)
 
@@ -397,8 +343,9 @@ def direct_cost_fn_from_views(stats, cams: geo.CameraSet, height: int,
     factors need not come from `cams`)."""
     color = isinstance(stats, ncc_color.ColorRefStats)
 
-    def eval_cost(normal, d, st, parity):
-        s0, sx, sy = ncc.plane_scalars(normal, d, st)
+    def eval_cost(normal, d, st, parity, scalars):
+        s0, sx, sy = (ncc.plane_scalars(normal, d, st) if scalars is None
+                      else scalars)
         return cuda_direct.multiview_cost_direct(views, s0, sx, sy, st,
                                                  params, parity)
     return _make_cost_and_ctx(
@@ -453,13 +400,15 @@ def _iterate(generator: torch.Generator, cost_fn, pctx: ParityCtx | None,
              rays: torch.Tensor, cams: geo.CameraSet,
              params: AlgorithmParams, iterations: int,
              init_state: PlaneState | None) -> PlaneState:
-    """Random init (unless `init_state` is given; its costs are kept) and
-    `iterations` checkerboard iterations on cost_fn."""
-    state = init_state
-    if state is None:
+    """Random init (unless `init_state` is given; its costs are kept, and
+    it is copied, not updated) and `iterations` checkerboard iterations on
+    cost_fn."""
+    if init_state is None:
         state = random_init_with(generator, tuple(rays.shape[:2]), cams,
                                  rays, cost_fn, params)
-    step = make_patchmatch_step(cost_fn, cams, params, pctx)
+    else:
+        state = _own(init_state) if iterations else init_state
+    step = make_patchmatch_step(cost_fn, cams, params, pctx, rays)
     for _ in range(iterations):
         state = step(state, generator)
     return state

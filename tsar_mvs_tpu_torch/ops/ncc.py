@@ -29,8 +29,7 @@ from tsar_mvs_tpu_torch.geometry import CameraSet, pixel_grid, pixel_rays
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops.sampling import (PackedImage, bilinear_sample,
                                              bilinear_sample_packed,
-                                             pack_image,
-                                             shift_with_edge_clamp)
+                                             pack_image)
 
 MAXCOST = 2.0
 
@@ -61,18 +60,28 @@ class RefStats(NamedTuple):
 
 def precompute_ref_stats(ref_img: torch.Tensor, cams: CameraSet,
                          params: AlgorithmParams) -> RefStats:
+    """The statistics of every window offset at once: one gather of the
+    edge-clamped offset pixels and elementwise ops over (O, H, W), each
+    value what shift_with_edge_clamp and the per-offset weight give (a
+    few launches a level instead of some ten an offset)."""
     H, W = ref_img.shape
+    dev = ref_img.device
     inv_2ss = 1.0 / (2.0 * params.sigma_spatial * params.sigma_spatial)
     inv_2sc = 1.0 / (2.0 * params.sigma_color * params.sigma_color)
-    shifted, weights = [], []
-    for (i, j) in window_offsets(params):
-        ref_c = shift_with_edge_clamp(ref_img, j, i) - ref_img
-        spatial = math.sqrt(i * i + j * j)
-        shifted.append(ref_c)
-        weights.append(torch.exp(-spatial * inv_2ss
-                                 - torch.abs(ref_c) * inv_2sc))
-    ref_centered = torch.stack(shifted)
-    wts = torch.stack(weights)
+    offs = window_offsets(params)
+    di = torch.tensor([i for i, _ in offs], device=dev)
+    dj = torch.tensor([j for _, j in offs], device=dev)
+    iy = torch.clamp(torch.arange(H, device=dev)[None, :] + dj[:, None], 0,
+                     H - 1)
+    ix = torch.clamp(torch.arange(W, device=dev)[None, :] + di[:, None], 0,
+                     W - 1)
+    ref_centered = ref_img[iy[:, :, None], ix[:, None, :]] - ref_img
+    # -|o| / (2 s_spatial^2) per offset, rounded to float32 as torch rounds
+    # the Python float of the per-offset expression.
+    spatial = torch.tensor([-math.sqrt(i * i + j * j) * inv_2ss
+                            for i, j in offs], dtype=torch.float32,
+                           device=dev)[:, None, None]
+    wts = torch.exp(spatial - torch.abs(ref_centered) * inv_2sc)
     inv_wsum = 1.0 / torch.sum(wts, dim=0)
     mean_ref = torch.sum(wts * ref_centered, dim=0) * inv_wsum
     mean_ref_ref = torch.sum(wts * ref_centered * ref_centered,

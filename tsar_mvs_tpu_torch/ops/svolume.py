@@ -109,13 +109,16 @@ def build_svolume(src_imgs: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
 def multiview_cost_svolume(vol: SVolume, ids: torch.Tensor,
                            normal: torch.Tensor, d: torch.Tensor,
                            stats: RefStats, params: AlgorithmParams,
-                           parity: int | None = None) -> MultiviewCost:
+                           parity: int | None = None,
+                           scalars=None) -> MultiviewCost:
     """n_best = 1 cost of the planes against every view, aggregated by
     the streaming top-2 (kernel B1: one launch for all views on the card,
     its plain version on the CPU). ids: (V,) view ids reported in
-    best_view."""
+    best_view. `scalars`: the planes' (s0, sx, sy) when the caller has
+    them (kernel B6's candidates), else computed here."""
     if params.n_best != 1:
         raise NotImplementedError("the s-volume path supports n_best == 1")
-    s0, sx, sy = plane_scalars(normal, d, stats)
+    s0, sx, sy = (plane_scalars(normal, d, stats) if scalars is None
+                  else scalars)
     return cuda_ncc.multiview_cost(vol.data, vol.s_lo, vol.inv_ds, ids, s0,
                                    sx, sy, stats, params, parity)
