@@ -149,11 +149,11 @@ line (the 2K scene renders in one spawned process per view):
 
 Every view of phases 5-10 launches B6 twice a propagation half-pass and
 twice a refine scale (312 a 2K view; none of the plain half-pass, whose
-calls halfpass.PLAIN_CALLS counts), B4 once per WMF pass (10 a view,
-80 in the sharded scene) and B5 once (8 in the sharded scene; a view
-without a trueweak region of 3 reliable points launches no B5, and the
-checks count such views from tsar.VIEWS_WITHOUT_REGIONS and print
-them), the crosschecks' and phase 5(b)'s and 5(c)'s launches aside. After phase 5, PatchMatch's seconds split into B1, B2 and the rest
+calls the trace counter halfpass.plain_calls counts), B4 once per WMF
+pass (10 a view, 80 in the sharded scene) and B5 once (8 in the sharded
+scene; a view without a trueweak region of 3 reliable points launches no
+B5, and the checks count such views from the trace counter
+ransac.views_without_regions and print them), the crosschecks' and phase 5(b)'s and 5(c)'s launches aside. After phase 5, PatchMatch's seconds split into B1, B2 and the rest
 (profiler), and on the direct paths (grayscale, colour, n_best 3) into B3
 and the rest, B3 once per evaluation. At the end one JSON line of
 per-kernel results (the top-level numbers of a kernel
@@ -173,6 +173,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+from tsar_mvs_tpu_torch import trace
 
 H, W, VIEWS = 1344, 2048, 8
 # Phase 8(e): an image whose pyramid level 2 has an odd side, beside one
@@ -326,9 +328,9 @@ def check_ncc(lv: dict, gt: dict) -> float:
             s0, sx, sy = sv.plane_scalars(n_p, d_p, st)
             args = (vol.data, vol.s_lo, vol.inv_ds, lv["ids"], s0, sx, sy,
                     st, params, parity)
-            before = cuda_ncc.LAUNCHES
+            before = trace.counter("launches.b1")
             mk = cuda_ncc.multiview_cost(*args)
-            launches = cuda_ncc.LAUNCHES - before
+            launches = trace.counter("launches.b1") - before
             mp = cuda_ncc.multiview_cost_plain(*args)
             agree, ok = b1_agreement(mk, mp, inv_p, params)
             r = {"field": field, "parity": parity, "window": list(window),
@@ -423,9 +425,9 @@ def check_direct(lv: dict, gt: dict) -> float:
             invalid = cb.parity_compress(invalid, parity)
         args = (inputs[(color, V)], *ncc.plane_scalars(n, d, stats), stats,
                 params, parity)
-        before = cuda_direct.LAUNCHES
+        before = trace.counter("launches.b3")
         mk = cuda_direct.multiview_cost_direct(*args)
-        launches = cuda_direct.LAUNCHES - before
+        launches = trace.counter("launches.b3") - before
         mp = cuda_direct.multiview_cost_direct_plain(*args)
         agree, ok = b3_agreement(mk, mp, invalid, params)
         r = {"field": field, "C": C, "parity": parity, "n_best": n_best,
@@ -461,9 +463,9 @@ def check_b4(calls: list) -> tuple[list, int]:
     crops, ok = [], True
     for name, call in zip(kt.pass_names(params), calls):
         args = kt.b4_args(kt.wmf_crop(call))
-        before = cuda_wmf.LAUNCHES
+        before = trace.counter("launches.b4")
         mk = wmf.median_plane(*args)
-        launches = cuda_wmf.LAUNCHES - before
+        launches = trace.counter("launches.b4") - before
         mp = wmf._median_plane_plain(*args)
         r = {"pass": name, "radius": call["radius"],
              "gap": cuda_wmf.gap_of(call["offsets"]), "launches": launches,
@@ -511,7 +513,6 @@ def check_b5(calls: list) -> tuple[list, int]:
     import torch
     from tsar_mvs_tpu_torch import kernel_times as kt
     from tsar_mvs_tpu_torch.models import ransac
-    from tsar_mvs_tpu_torch.ops import cuda_ransac
     if len(calls) != 1:
         raise SystemExit(f"the main path made {len(calls)} RANSAC calls, "
                          f"not 1")
@@ -523,9 +524,9 @@ def check_b5(calls: list) -> tuple[list, int]:
     res = {}
     for names in kt.case_packs():
         inp = kt.pack_cases(cases, names)
-        before = cuda_ransac.LAUNCHES
+        before = trace.counter("launches.b5")
         mk = ransac.ransac_regions(inp)
-        launches = cuda_ransac.LAUNCHES - before
+        launches = trace.counter("launches.b5") - before
         mp = ransac.ransac_regions_plain(inp)
         r = {"points": kt.region_sizes(inp), "launches": launches,
              "inliers": mp[1].tolist(), "thr": mp[2].tolist(),
@@ -605,33 +606,24 @@ def stage_timer(stages: dict):
     return timer
 
 
-def _wrappers() -> dict:
-    """The kernel wrappers by key: B1 "ncc", B2 "warp", B3 "direct", B4
-    "wmf", B5 "ransac", B6 "halfpass"."""
-    from tsar_mvs_tpu_torch.ops import cuda_direct, cuda_ncc, cuda_warp
-    from tsar_mvs_tpu_torch.ops import cuda_halfpass, cuda_ransac, cuda_wmf
-    return {"ncc": cuda_ncc, "warp": cuda_warp, "direct": cuda_direct,
-            "wmf": cuda_wmf, "ransac": cuda_ransac,
-            "halfpass": cuda_halfpass}
+# The kernels by the keys of the launch counts: B1 "ncc", B2 "warp", B3
+# "direct", B4 "wmf", B5 "ransac", B6 "halfpass" (trace's launches.b1 ...).
+KERNELS = {"ncc": "b1", "warp": "b2", "direct": "b3", "wmf": "b4",
+           "ransac": "b5", "halfpass": "b6"}
 
 
 def reset_launches() -> None:
     """Every wrapper's counts, the count of refined views without a
     RANSAC region and the plain half-pass's calls to 0."""
-    from tsar_mvs_tpu_torch.models import tsar
-    from tsar_mvs_tpu_torch.ops import halfpass
-    for mod in _wrappers().values():
-        mod.LAUNCHES = 0
-        mod.LAUNCHES_BY_SHAPE.clear()
-    tsar.VIEWS_WITHOUT_REGIONS = 0
-    halfpass.PLAIN_CALLS = 0
+    trace.clear(*(f"launches.{b}" for b in KERNELS.values()),
+                *(f"launches_by_shape.{b}" for b in KERNELS.values()),
+                "ransac.views_without_regions", "halfpass.plain_calls")
 
 
 def plain_halfpass_calls() -> int:
     """Calls of the plain (torch) half-pass since reset_launches: 0 on the
     card."""
-    from tsar_mvs_tpu_torch.ops import halfpass
-    return halfpass.PLAIN_CALLS
+    return trace.counter("halfpass.plain_calls")
 
 
 def b6_expected(scene, params) -> int:
@@ -649,13 +641,12 @@ def b5_expected(views: int) -> int:
     """Kernel B5's launches in a run (since reset_launches) that refined
     `views` views: one a view, less the views that had no trueweak region
     of 3 reliable points, for which B5 launches nothing
-    (tsar.VIEWS_WITHOUT_REGIONS counts them)."""
-    from tsar_mvs_tpu_torch.models import tsar
-    return views - tsar.VIEWS_WITHOUT_REGIONS
+    (the trace counter ransac.views_without_regions counts them)."""
+    return views - trace.counter("ransac.views_without_regions")
 
 
 def read_launches() -> dict:
-    return {k: mod.LAUNCHES for k, mod in _wrappers().items()}
+    return {k: trace.counter(f"launches.{b}") for k, b in KERNELS.items()}
 
 
 def read_launches_by_shape() -> dict:
@@ -664,26 +655,23 @@ def read_launches_by_shape() -> dict:
     candidates, channels and n_best, B4 by image grid, radius and gap, B5
     by regions and the largest region's points, B6 by kernel, grid and
     banks."""
-    w = _wrappers()
+    def shapes(key):
+        return sorted(trace.by_key(f"launches_by_shape.{KERNELS[key]}")
+                      .items())
     return {"ncc": [{"grid": [hc, wc], "C": c, "launches": n}
-                    for (hc, wc, c), n
-                    in sorted(w["ncc"].LAUNCHES_BY_SHAPE.items())],
+                    for (hc, wc, c), n in shapes("ncc")],
             "warp": [{"grid": [h, w_], "planes": s, "launches": n}
-                     for (s, h, w_), n
-                     in sorted(w["warp"].LAUNCHES_BY_SHAPE.items())],
+                     for (s, h, w_), n in shapes("warp")],
             "direct": [{"grid": [hc, wc], "C": c, "channels": ch,
                         "n_best": nb, "launches": n}
-                       for (hc, wc, c, ch, nb), n
-                       in sorted(w["direct"].LAUNCHES_BY_SHAPE.items())],
+                       for (hc, wc, c, ch, nb), n in shapes("direct")],
             "wmf": [{"grid": [h, w_], "radius": r, "gap": g, "launches": n}
-                    for (h, w_, r, g), n
-                    in sorted(w["wmf"].LAUNCHES_BY_SHAPE.items())],
+                    for (h, w_, r, g), n in shapes("wmf")],
             "ransac": [{"regions": r, "largest_n": m, "launches": n}
-                       for (r, m), n
-                       in sorted(w["ransac"].LAUNCHES_BY_SHAPE.items())],
+                       for (r, m), n in shapes("ransac")],
             "halfpass": [{"kernel": k, "grid": [hc, wc], "banks": b,
-                          "launches": n} for (k, hc, wc, b), n
-                         in sorted(w["halfpass"].LAUNCHES_BY_SHAPE.items())]}
+                          "launches": n}
+                         for (k, hc, wc, b), n in shapes("halfpass")]}
 
 
 # WMF passes a view at the default AlgorithmParams (wmf_iters +
@@ -1363,7 +1351,6 @@ def sharded_rank(root: str, out: str) -> None:
     if mesh.device.type != "cuda":
         raise SystemExit(f"rank {mesh.rank} runs on {mesh.device}")
     scene = pipeline.load_scene(root)
-    from tsar_mvs_tpu_torch.models import tsar
     info = {"rank": mesh.rank, "world": mesh.world,
             "device": str(mesh.device), "launches": {},
             "views_without_regions": {}}
@@ -1375,7 +1362,8 @@ def sharded_rank(root: str, out: str) -> None:
         torch.cuda.synchronize()
         info["launches"][impl] = read_launches()
         info["launches"][impl]["plain_halfpass"] = plain_halfpass_calls()
-        info["views_without_regions"][impl] = tsar.VIEWS_WITHOUT_REGIONS
+        info["views_without_regions"][impl] = trace.counter(
+            "ransac.views_without_regions")
         if mesh.rank == 0:
             np.savez(Path(out) / f"{impl}.npz", depths=depths,
                      normals=normals, points=cloud.points)
@@ -1749,7 +1737,7 @@ def main() -> int:
          "direct_paths": direct_split,
          "instances": b3_instances,
          "instances_launched": sorted(
-             list(k) for k in cuda_direct.LAUNCHES_BY_INSTANCE),
+             list(k) for k in trace.by_key("launches_by_instance.b3")),
          "build_seconds": _build.BUILD_SECONDS},
         {"name": "wmf_median", "route": "cuda",
          "source": "tsar_mvs_tpu_torch/csrc/wmf.cu",

@@ -51,6 +51,7 @@ from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops import cuda_direct, ncc
 from tsar_mvs_tpu_torch.ops import ncc_color as nc
 from tsar_mvs_tpu_torch.ops.sampling import pack_image
+from tsar_mvs_tpu_torch import trace
 
 torch.set_num_threads(2)
 H, W = 48, 64
@@ -529,11 +530,11 @@ def test_b3_kernel_matches_plain_on_card(setup, parity, V, C, n_best, color,
                                    tc.b[src] * scale[:, None],
                                    torch.arange(1, V + 1, device=dev))
     args = (views, *ncc.plane_scalars(n, d, st), st, tparams, parity)
-    before = cuda_direct.LAUNCHES
+    before = trace.counter("launches.b3")
     mk = cuda_direct.multiview_cost_direct(*args)
     mp = cuda_direct.multiview_cost_direct_plain(*args)
     torch.cuda.synchronize()
-    assert cuda_direct.LAUNCHES == before + 1
+    assert trace.counter("launches.b3") == before + 1
     np.testing.assert_array_equal(mk.cost.cpu().numpy(),
                                   mp.cost.cpu().numpy())
     np.testing.assert_array_equal(mk.ratio.cpu().numpy(),

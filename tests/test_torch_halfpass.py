@@ -57,6 +57,7 @@ from tsar_mvs_tpu_torch.ops import cuda_halfpass
 from tsar_mvs_tpu_torch.ops import halfpass as hp
 from tsar_mvs_tpu_torch.ops import ncc
 from tsar_mvs_tpu_torch.ops.ncc import MultiviewCost
+from tsar_mvs_tpu_torch import trace
 
 torch.set_num_threads(2)
 f32 = np.float32
@@ -155,12 +156,12 @@ def test_propagation_plain_matches_jax(setups, layout, banks, parity):
     tparams = dataclasses.replace(s["tparams"], prop_banks=banks)
     j_cost_fn, j_pctx = s["j"]
     t_cost_fn, t_pctx = s["t"]
-    n0 = hp.PLAIN_CALLS
+    n0 = trace.counter("halfpass.plain_calls")
     jout = jpm._propagation_pass(s["jstate"], parity, j_cost_fn, s["jc"],
                                  params, None, j_pctx)
     tout = pm._propagation_pass(s["tstate"], parity, t_cost_fn, s["tc"],
                                 tparams, t_pctx)
-    assert hp.PLAIN_CALLS == n0 + 2
+    assert trace.counter("halfpass.plain_calls") == n0 + 2
 
     # JAX's candidate costs on the dense grid, to find the clear winners.
     st = s["jstate"]
@@ -625,10 +626,10 @@ def test_cuda_tensor_with_a_failing_launch_raises(setups, monkeypatch):
     monkeypatch.setattr(_build, "load_library", Lib)
     monkeypatch.setattr(cuda_halfpass, "_check",
                         lambda *a, **k: None)
-    before = cuda_halfpass.LAUNCHES
+    before = trace.counter("launches.b6")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         hp.prop_select(state, 0, cb.BANKS, grid)
-    assert Lib.calls == 1 and cuda_halfpass.LAUNCHES == before
+    assert Lib.calls == 1 and trace.counter("launches.b6") == before
     monkeypatch.undo()
     monkeypatch.setattr(_build, "load_library", Lib)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -659,7 +660,7 @@ def test_b6_kernels_match_plain_on_card(setups, layout, parity, case):
     state, grid, mv8, mv1, draws = _emu_inputs(setups, layout, case, parity,
                                                dev)
     s = setups[layout]
-    n0 = cuda_halfpass.LAUNCHES
+    n0 = trace.counter("launches.b6")
     mk = hp.prop_select(state, parity, cb.BANKS, grid)
     mp = hp.prop_select_plain(state, parity, cb.BANKS, grid)
     assert kt.b6_agreement(mk, mp)["max_abs_err"] == 0
@@ -680,4 +681,4 @@ def test_b6_kernels_match_plain_on_card(setups, layout, parity, case):
     torch.cuda.synchronize()
     agree = kt.b6_agreement(sk, sp)
     assert agree["max_abs_err"] == 0 and agree["mismatches"] == 0, agree
-    assert cuda_halfpass.LAUNCHES == n0 + 4
+    assert trace.counter("launches.b6") == n0 + 4

@@ -36,6 +36,7 @@ from tsar_mvs_tpu_torch import kernel_times as kt
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.models import ransac, tsar
 from tsar_mvs_tpu_torch.ops import cuda_ransac
+from tsar_mvs_tpu_torch import trace
 
 torch.set_num_threads(2)
 SOURCE = Path(cuda_ransac.__file__).resolve().parents[1] / "csrc" / \
@@ -448,16 +449,17 @@ def test_fit_region_planes_fits_a_view_in_one_call(monkeypatch):
     params = AlgorithmParams(ransac_iters=1000, ransac_anneal_rounds=3,
                              ransac_max_points=200)
     reliable = np.ones((H, W), bool)
-    before = tsar.VIEWS_WITHOUT_REGIONS
+    before = trace.counter("ransac.views_without_regions")
     planes = tsar.fit_region_planes(torch.Generator().manual_seed(0),
                                     weak, disp, reliable, cams, params)
     assert calls == [[200, 200]]
     assert (planes[0] == 0).all() and (planes[3] == 0).all()
     assert (planes[1] != 0).any() and (planes[2] != 0).any()
-    assert tsar.VIEWS_WITHOUT_REGIONS == before
+    assert trace.counter("ransac.views_without_regions") == before
     tsar.fit_region_planes(torch.Generator().manual_seed(0), weak, disp,
                            np.zeros((H, W), bool), cams, params)
-    assert len(calls) == 1 and tsar.VIEWS_WITHOUT_REGIONS == before + 1
+    assert len(calls) == 1
+    assert trace.counter("ransac.views_without_regions") == before + 1
 
 
 def test_b5_bound_counts_the_function():
@@ -578,11 +580,11 @@ def test_cpu_tensors_never_reach_the_build(cases, monkeypatch):
     def refuse():
         raise AssertionError("a CPU tensor reached the kernel library")
     monkeypatch.setattr(_build, "load_library", refuse)
-    before = cuda_ransac.LAUNCHES
+    before = trace.counter("launches.b5")
     inp = kt.pack_cases(cases, ["ties", "three"])
     _assert_equal_fits(ransac.ransac_regions(inp),
                        ransac.ransac_regions_plain(inp))
-    assert cuda_ransac.LAUNCHES == before
+    assert trace.counter("launches.b5") == before
 
 
 def test_cuda_tensor_with_a_failing_launch_raises(cases, monkeypatch):
@@ -609,10 +611,10 @@ def test_cuda_tensor_with_a_failing_launch_raises(cases, monkeypatch):
                             "multi_processor_count": 132}))
     monkeypatch.setattr(_build, "load_library", Lib)
     inp = kt.pack_cases(cases, ["ties", "three"])
-    before = cuda_ransac.LAUNCHES
+    before = trace.counter("launches.b5")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ransac.ransac_regions(inp)
-    assert Lib.calls == 1 and cuda_ransac.LAUNCHES == before
+    assert Lib.calls == 1 and trace.counter("launches.b5") == before
     # The plans' sizes: one chunk for both regions, one cluster of
     # one-block units, a slice of 12 points.
     assert Lib.plans == [(1, cuda_ransac.CLUSTER, 12)]
@@ -640,10 +642,10 @@ def test_b5_kernel_matches_plain_on_card(names):
         pytest.skip("needs a CUDA device")
     cases = kt.ransac_cases(20000, 10, 1000, torch.device("cuda"))
     inp = kt.pack_cases(cases, names)
-    before = cuda_ransac.LAUNCHES
+    before = trace.counter("launches.b5")
     mk = ransac.ransac_regions(inp)
     mp = ransac.ransac_regions_plain(inp)
     torch.cuda.synchronize()
-    assert cuda_ransac.LAUNCHES == before + 1
+    assert trace.counter("launches.b5") == before + 1
     agree = kt.b5_agreement(mk, mp)
     assert agree["max_abs_err"] == 0, agree

@@ -22,6 +22,7 @@ from tsar_mvs_tpu_torch import geometry as geo
 from tsar_mvs_tpu_torch.models import patchmatch as pm
 from tsar_mvs_tpu_torch.ops import cuda_warp, ncc
 from tsar_mvs_tpu_torch.ops import svolume as sv
+from tsar_mvs_tpu_torch import trace
 
 torch.set_num_threads(2)
 
@@ -139,11 +140,11 @@ def test_warp_kernel_matches_plain_on_card(scene, setup):
     src = torch.as_tensor(scene.images[3], device=dev)
     A, b = tc.A[3].to(dev), tc.b[3].to(dev)
     ds = (s_hi - s_lo) / (S - 1)
-    before = cuda_warp.LAUNCHES
+    before = trace.counter("launches.b2")
     vk = cuda_warp.build_svolume_view(src, A, b, s_lo, ds, S)
     vp = cuda_warp.build_svolume_view_plain(src, A, b, s_lo, ds, S)
     torch.cuda.synchronize()
-    assert cuda_warp.LAUNCHES == before + 1
+    assert trace.counter("launches.b2") == before + 1
     delta = (vk.float() - vp.float()).abs().cpu().numpy()
     assert np.median(delta) == 0.0
     assert np.quantile(delta, 0.999) <= 1.0

@@ -32,6 +32,7 @@ from tsar_mvs_tpu.ops import wmf as jwmf
 from tsar_mvs_tpu_torch import _build
 from tsar_mvs_tpu_torch import kernel_times as kt
 from tsar_mvs_tpu_torch.ops import cuda_wmf, wmf
+from tsar_mvs_tpu_torch import trace
 
 torch.set_num_threads(2)
 SOURCE = Path(cuda_wmf.__file__).resolve().parents[1] / "csrc" / "wmf.cu"
@@ -354,14 +355,14 @@ def test_cpu_tensors_never_reach_the_build(fields, monkeypatch):
     offsets = wmf.sample_offsets(radius, gap)
     args = (*_torch_fields(fields), offsets, div, SIGMA_SPATIAL,
             SIGMA_COLOR, radius)
-    before = cuda_wmf.LAUNCHES
+    before = trace.counter("launches.b4")
     got = wmf.median_plane(*args, chunk_rows=40)
     want = wmf._median_plane_plain(*args, 256)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32) if a.is_floating_point()
                            else a, b.view(torch.int32)
                            if b.is_floating_point() else b)
-    assert cuda_wmf.LAUNCHES == before
+    assert trace.counter("launches.b4") == before
 
 
 def test_cuda_tensor_with_a_failing_launch_raises(fields, monkeypatch):
@@ -382,10 +383,10 @@ def test_cuda_tensor_with_a_failing_launch_raises(fields, monkeypatch):
     offsets = wmf.sample_offsets(5, 1)
     args = (*_torch_fields(fields), offsets, 1.0, SIGMA_SPATIAL,
             SIGMA_COLOR, 5)
-    before = cuda_wmf.LAUNCHES
+    before = trace.counter("launches.b4")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         wmf.median_plane(*args)
-    assert Lib.calls == 1 and cuda_wmf.LAUNCHES == before
+    assert Lib.calls == 1 and trace.counter("launches.b4") == before
     gray, disp, normal, reliable = _torch_fields(fields)
     with pytest.raises(TypeError):
         wmf.median_plane(gray, disp, normal, reliable.float(),
@@ -420,11 +421,11 @@ def test_b4_kernel_matches_plain_on_card(fields, kind, iteration):
                         "spatial_div": div, "sigma_spatial": SIGMA_SPATIAL,
                         "sigma_color": SIGMA_COLOR, "radius": radius})
     args = kt.b4_args(call)
-    before = cuda_wmf.LAUNCHES
+    before = trace.counter("launches.b4")
     mk = wmf.median_plane(*args)
     mp = wmf._median_plane_plain(*args)
     torch.cuda.synchronize()
-    assert cuda_wmf.LAUNCHES == before + 1
+    assert trace.counter("launches.b4") == before + 1
     agree = kt.b4_agreement(mk, mp)
     assert agree["max_abs_err"] == 0, agree
     assert (mp.num == 0).any() and (mp.num > 0).any()

@@ -26,6 +26,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from tsar_mvs_tpu_torch import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tsar_mvs_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -98,61 +100,71 @@ def library_path() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, BUILD_LOG
+    """Build (once per source hash) and load the kernel library: the
+    `library_load` span, with a `library_load.build` child when nvcc
+    runs."""
+    global _lib
     if _lib is not None:
         return _lib
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
-                contextlib.ExitStack() as open_logs:
-            # One nvcc per source, all started together, then one link.
-            t0 = time.perf_counter()
-            jobs = []
-            for src in sorted(CSRC.glob("*.cu")):
-                obj = os.path.join(tmp, src.stem + ".o")
-                log = open_logs.enter_context(
-                    open(os.path.join(tmp, src.stem + ".log"), "w+"))
-                jobs.append((src.name, obj, log, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                    stdout=log, stderr=subprocess.STDOUT)))
-            running = {name for name, *_ in jobs}
-            while running:
-                for name, _, _, proc in jobs:
-                    if name in running and proc.poll() is not None:
-                        BUILD_SECONDS[name] = time.perf_counter() - t0
-                        running.discard(name)
-                time.sleep(0.05)
-            logs = []
-            for _, _, log, _ in jobs:
-                log.seek(0)
-                logs.append(log.read())
-            BUILD_LOG = "".join(logs)
-            failed = [proc.returncode for *_, proc in jobs
-                      if proc.returncode != 0]
-            if failed:
-                raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
-                                   f"{BUILD_LOG}")
-            lib_tmp = os.path.join(tmp, out.name)
-            link = subprocess.run(
-                [nvcc, "-shared", "-o", lib_tmp,
-                 *(obj for _, obj, *_ in jobs)],
-                capture_output=True, text=True)
-            BUILD_SECONDS["link"] = time.perf_counter() - t0
-            BUILD_LOG += link.stdout + link.stderr
-            if link.returncode != 0:
-                raise RuntimeError(f"nvcc link failed ({link.returncode}):"
-                                   f"\n{BUILD_LOG}")
-            os.replace(lib_tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with trace.span("library_load"):
+        out = library_path()
+        if not out.exists():
+            with trace.span("library_load.build"):
+                _compile(out)
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def _compile(out: Path) -> None:
+    """Every source of csrc/ through nvcc and one link into `out`."""
+    global BUILD_LOG
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+            contextlib.ExitStack() as open_logs:
+        # One nvcc per source, all started together, then one link.
+        t0 = time.perf_counter()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            log = open_logs.enter_context(
+                open(os.path.join(tmp, src.stem + ".log"), "w+"))
+            jobs.append((src.name, obj, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=log, stderr=subprocess.STDOUT)))
+        running = {name for name, *_ in jobs}
+        while running:
+            for name, _, _, proc in jobs:
+                if name in running and proc.poll() is not None:
+                    BUILD_SECONDS[name] = time.perf_counter() - t0
+                    running.discard(name)
+            time.sleep(0.05)
+        logs = []
+        for _, _, log, _ in jobs:
+            log.seek(0)
+            logs.append(log.read())
+        BUILD_LOG = "".join(logs)
+        failed = [proc.returncode for *_, proc in jobs
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{BUILD_LOG}")
+        lib_tmp = os.path.join(tmp, out.name)
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", lib_tmp,
+             *(obj for _, obj, *_ in jobs)],
+            capture_output=True, text=True)
+        BUILD_SECONDS["link"] = time.perf_counter() - t0
+        BUILD_LOG += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):"
+                               f"\n{BUILD_LOG}")
+        os.replace(lib_tmp, out)
 
 
 def kernel_resources(log: str | None = None) -> list[str]:

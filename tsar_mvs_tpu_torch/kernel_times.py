@@ -100,6 +100,8 @@ import sys
 import time
 from pathlib import Path
 
+from tsar_mvs_tpu_torch import trace
+
 H, W, VIEWS = 1344, 2048, 8
 LEVELS = (4, 2, 1)
 HBM_BYTES_PER_S = 3.35e12
@@ -900,7 +902,7 @@ def time_b3_all(scene, gt: dict, dev) -> dict:
     if hasattr(cuda_direct, "kernel_attributes"):
         res["instances"] = cuda_direct.kernel_attributes()
         res["instances_launched"] = sorted(
-            list(k) for k in cuda_direct.LAUNCHES_BY_INSTANCE)
+            list(k) for k in trace.by_key("launches_by_instance.b3"))
     return res
 
 
@@ -1112,9 +1114,9 @@ def time_b4(calls: list, params, before=None) -> list[dict]:
         args = b4_args(call)
         H, W = call["gray"].shape
         O = len(call["offsets"])
-        n0 = cuda_wmf.LAUNCHES
+        n0 = trace.counter("launches.b4")
         mk = wmf.median_plane(*args)
-        launches = cuda_wmf.LAUNCHES - n0
+        launches = trace.counter("launches.b4") - n0
         mp = wmf._median_plane_plain(*args)
         res = {"pass": name, "grid": [H, W], "radius": call["radius"],
                "gap": cuda_wmf.gap_of(call["offsets"]), "O": O,
@@ -1153,12 +1155,11 @@ def time_b4_all(scene, dev, before: str | None) -> dict:
     import torch
     from tsar_mvs_tpu_torch import _build
     from tsar_mvs_tpu_torch.config import AlgorithmParams
-    from tsar_mvs_tpu_torch.ops import cuda_wmf
     params = AlgorithmParams()
-    cuda_wmf.LAUNCHES = 0
+    trace.clear("launches.b4")
     calls = view_inputs(scene, params, dev)["wmf"]
     torch.cuda.synchronize()
-    res = {"launches_a_view": cuda_wmf.LAUNCHES,
+    res = {"launches_a_view": trace.counter("launches.b4"),
            "passes": time_b4(calls, params, before and load_wmf_before(
                before)),
            "resources": [r for r in _build.kernel_resources()
@@ -1554,9 +1555,9 @@ def time_b5(calls: list, before=None) -> list[dict]:
     out = []
     for inp in calls:
         n = region_sizes(inp)
-        n0 = cuda_ransac.LAUNCHES
+        n0 = trace.counter("launches.b5")
         mk = ransac.ransac_regions(inp)
-        launches = cuda_ransac.LAUNCHES - n0
+        launches = trace.counter("launches.b5") - n0
         mp = ransac.ransac_regions_plain(inp)
         rounds, anneal = inp.idx.shape[1], inp.deltas.shape[1]
         res = {"regions": len(n), "points": n, "rounds": rounds,
@@ -1732,14 +1733,14 @@ def time_b5_all(scene, dev, before: str | None) -> dict:
     import torch
     from tsar_mvs_tpu_torch import _build
     from tsar_mvs_tpu_torch.config import AlgorithmParams
-    from tsar_mvs_tpu_torch.ops import cuda_ransac
     first = first_ransac_split(scene, dev)
     old = load_before(before) if before is not None else {}
     params = AlgorithmParams()
-    cuda_ransac.LAUNCHES = 0
+    trace.clear("launches.b5")
     calls = view_inputs(scene, params, dev, wmf=False)
     torch.cuda.synchronize()
-    res = {"first_call": first, "launches_a_view": cuda_ransac.LAUNCHES,
+    res = {"first_call": first,
+           "launches_a_view": trace.counter("launches.b5"),
            "calls": time_b5(calls["ransac"], old.get("cuda_ransac")),
            "views": time_b5_views(scene_ransac_inputs(scene, params, dev),
                                   old.get("cuda_ransac")),
@@ -2012,7 +2013,6 @@ def b6_check(call: dict) -> dict:
     proposal) and the states after the whole half-pass, with the launches
     of the kernel's run."""
     from tsar_mvs_tpu_torch.models import patchmatch as pm
-    from tsar_mvs_tpu_torch.ops import cuda_halfpass
     from tsar_mvs_tpu_torch.ops import halfpass as hp
     st, parity, grid = call["state"], call["parity"], call["grid"]
     if call["kind"] == "propagation":
@@ -2025,9 +2025,9 @@ def b6_check(call: dict) -> dict:
                 dz, dn)
         first = b6_agreement(hp.refine_propose(*args),
                              hp.refine_propose_plain(*args))
-    n0 = cuda_halfpass.LAUNCHES
+    n0 = trace.counter("launches.b6")
     mk = b6_run(call)
-    launches = cuda_halfpass.LAUNCHES - n0
+    launches = trace.counter("launches.b6") - n0
     mp = b6_run(call, plain=True)
     whole = b6_agreement(mk, mp)
     changed = taken_count(mk.cost, st.cost)
@@ -2090,7 +2090,8 @@ def time_b6(calls: list, by_shape=None) -> list[dict]:
     trace is dropped), both for the accepts each on a fresh copy of the
     recorded state (on_copies), the plain version's ms (a mean of 3), its
     bound (b6_bound, with the positions each accept takes) and, from
-    `by_shape` (cuda_halfpass.LAUNCHES_BY_SHAPE of a main-path run), its
+    `by_shape` (the trace counter launches_by_shape.b6 of a main-path
+    run), its
     launches at that shape."""
     from tsar_mvs_tpu_torch.models import patchmatch as pm
     from tsar_mvs_tpu_torch.ops import halfpass as hp
@@ -2209,7 +2210,6 @@ def time_b6_all(scene, dev, before: str | None) -> dict:
     import tempfile
     import torch
     from tsar_mvs_tpu_torch import pipeline
-    from tsar_mvs_tpu_torch.ops import cuda_halfpass
     params = pipeline.default_params_for_scene(scene)
     out: dict = {"checks": [], "shapes": []}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2218,9 +2218,9 @@ def time_b6_all(scene, dev, before: str | None) -> dict:
             calls: list = []
             with recording_halfpasses(calls):
                 pyramid_runner(sc, p, dev)()
-            cuda_halfpass.LAUNCHES_BY_SHAPE.clear()
+            trace.clear("launches_by_shape.b6")
             pyramid_runner(sc, p, dev)()
-            by_shape = dict(cuda_halfpass.LAUNCHES_BY_SHAPE)
+            by_shape = trace.by_key("launches_by_shape.b6")
             for call in calls:
                 for case, c in (("recorded", call),
                                 ("stress", b6_stress(call))):

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tsar_mvs_tpu_torch import trace
 from tsar_mvs_tpu_torch.ops import cuda_ransac
 
 RANSAC_ROUND = cuda_ransac.HYPOTHESES
@@ -198,9 +199,16 @@ def polish(inp: RansacInputs, plane, count, thr):
 
 
 def fit_regions(inp: RansacInputs) -> PlaneFit:
-    """RANSAC, annealing and polish of every region: (R, 4), (R,), (R,)."""
-    plane, count, thr = ransac_regions(inp)
-    plane, count = polish(inp, plane, count, thr)
+    """RANSAC, annealing and polish of every region: (R, 4), (R,), (R,).
+    The `ransac.fit` span carries the call's work: its regions, points,
+    rounds and annealing rounds, on which B5's bytes and operations
+    depend."""
+    with trace.span("ransac.fit", regions=inp.offsets.shape[0] - 1,
+                    points=inp.points.shape[0], rounds=inp.idx.shape[1],
+                    anneal_rounds=inp.deltas.shape[1]):
+        plane, count, thr = ransac_regions(inp)
+    with trace.span("ransac.polish"):
+        plane, count = polish(inp, plane, count, thr)
     return PlaneFit(plane=plane, inliers=count.to(torch.int32),
                     threshold=thr)
 

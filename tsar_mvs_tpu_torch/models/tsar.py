@@ -22,14 +22,10 @@ import torch
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.models.weak_texture import WeakTexture
 from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch import trace
 from tsar_mvs_tpu_torch.models import ransac
 from tsar_mvs_tpu_torch.models.patchmatch import PlaneState, depth_map
 from tsar_mvs_tpu_torch.ops import ncc, wmf
-
-
-# Views whose RANSAC stage found no trueweak region of 3 reliable points,
-# so kernel B5 did not launch for them (read by chip_smoke.py).
-VIEWS_WITHOUT_REGIONS = 0
 
 
 @dataclass
@@ -84,41 +80,42 @@ def fit_region_planes(generator: torch.Generator, weak: WeakTexture,
     uniformly. The host builds each region's mask and draws its random
     numbers; then one call fits every region (kernel B5 on the card) and
     one batched polish follows. A view without a region of 3 reliable
-    points fits nothing (VIEWS_WITHOUT_REGIONS counts it)."""
-    global VIEWS_WITHOUT_REGIONS
+    points fits nothing (the trace counter ransac.views_without_regions
+    counts it)."""
     from scipy import ndimage
     H, W = disp.shape
     dev = disp.device
-    depth = geo.disparity_depth(cams.f, cams.baseline, disp)
-    pts_all = ransac.region_points(depth, geo.pixel_rays(cams, H, W))
-    labels = weak.labels_full
     planes = np.zeros((weak.num_regions, 4), np.float32)
-    regions, pts, idx, deltas, thr0 = [], [], [], [], []
-    for region in np.nonzero(weak.text == -1)[0]:
-        rmask = labels == region
-        if params.ransac_ring > 0:
-            rmask = ndimage.binary_dilation(rmask,
-                                            iterations=params.ransac_ring)
-        ys, xs = np.nonzero(rmask & reliable)
-        if ys.size < 3:
-            continue
-        sel = torch.as_tensor(ys * W + xs, device=dev)
-        if ys.size > params.ransac_max_points:
-            keep = torch.randperm(ys.size, generator=generator,
-                                  device=dev)[:params.ransac_max_points]
-            sel = sel[keep]
-        p = pts_all.reshape(-1, 3)[sel]
-        i, dl = ransac.draw_region(generator, p.shape[0],
-                                   params.ransac_iters,
-                                   params.ransac_anneal_rounds)
-        regions.append(region)
-        pts.append(p)
-        idx.append(i)
-        deltas.append(dl)
-        thr0.append(ransac.initial_threshold(int(weak.size[region]),
-                                             params.ransac_thr_base))
+    with trace.span("ransac.regions"):
+        depth = geo.disparity_depth(cams.f, cams.baseline, disp)
+        pts_all = ransac.region_points(depth, geo.pixel_rays(cams, H, W))
+        labels = weak.labels_full
+        regions, pts, idx, deltas, thr0 = [], [], [], [], []
+        for region in np.nonzero(weak.text == -1)[0]:
+            rmask = labels == region
+            if params.ransac_ring > 0:
+                rmask = ndimage.binary_dilation(
+                    rmask, iterations=params.ransac_ring)
+            ys, xs = np.nonzero(rmask & reliable)
+            if ys.size < 3:
+                continue
+            sel = torch.as_tensor(ys * W + xs, device=dev)
+            if ys.size > params.ransac_max_points:
+                keep = torch.randperm(ys.size, generator=generator,
+                                      device=dev)[:params.ransac_max_points]
+                sel = sel[keep]
+            p = pts_all.reshape(-1, 3)[sel]
+            i, dl = ransac.draw_region(generator, p.shape[0],
+                                       params.ransac_iters,
+                                       params.ransac_anneal_rounds)
+            regions.append(region)
+            pts.append(p)
+            idx.append(i)
+            deltas.append(dl)
+            thr0.append(ransac.initial_threshold(int(weak.size[region]),
+                                                 params.ransac_thr_base))
     if not regions:
-        VIEWS_WITHOUT_REGIONS += 1
+        trace.count("ransac.views_without_regions")
         return planes
     fit = ransac.fit_regions(ransac.pack_regions(
         pts, idx, deltas, thr0, params.ransac_thr_max,
@@ -197,16 +194,19 @@ def border_veto(cams: geo.CameraSet, region_planes: np.ndarray,
                 weak: WeakTexture, disp: torch.Tensor,
                 params: AlgorithmParams) -> np.ndarray:
     """Drop (zero) the region planes whose filled depth jumps more than
-    border_check_thr * depth_min across the region border."""
+    border_check_thr * depth_min across the region border (the
+    `fill.border_check` span)."""
     dev = disp.device
-    fake = fake_depth_stage(
-        cams, torch.as_tensor(region_planes, device=dev),
-        torch.as_tensor(weak.labels_full, dtype=torch.int64, device=dev),
-        torch.as_tensor(weak.text == -1, device=dev), params)
-    jump = border_consistency_check(weak, fake.cpu().numpy(),
-                                    disp.cpu().numpy(), cams)
-    veto = jump > params.border_check_thr * params.depth_min
-    return np.where(veto[:, None], 0.0, region_planes).astype(np.float32)
+    with trace.span("fill.border_check"):
+        fake = fake_depth_stage(
+            cams, torch.as_tensor(region_planes, device=dev),
+            torch.as_tensor(weak.labels_full, dtype=torch.int64, device=dev),
+            torch.as_tensor(weak.text == -1, device=dev), params)
+        jump = border_consistency_check(weak, fake.cpu().numpy(),
+                                        disp.cpu().numpy(), cams)
+        veto = jump > params.border_check_thr * params.depth_min
+        return np.where(veto[:, None], 0.0,
+                        region_planes).astype(np.float32)
 
 
 def wmf_final_stage(ref_img: torch.Tensor, cams: geo.CameraSet,
@@ -253,45 +253,49 @@ def tsar_refine(imgs: torch.Tensor, cams: geo.CameraSet,
     imgs (V, H, W) f32 on the device. `reliable_seed` (H, W) bool seeds the
     reliability mask the WMF marking starts from (all true without one).
     `timer(name)`, when given, is called at each stage boundary with the
-    name of the stage that just ended."""
-    mark = timer or (lambda name: None)
+    name of the stage that just ended; each stage is a trace span of that
+    name."""
     dev = imgs.device
     view_ids = tuple(int(v) for v in view_ids)
     H, W = imgs.shape[1:]
-    confid, _, disp = confidence_stage(imgs, view_ids, cams, state, params)
-    mark("confidence")
-    reliable = (torch.ones((H, W), dtype=torch.bool, device=dev)
-                if reliable_seed is None
-                else torch.as_tensor(np.asarray(reliable_seed, bool),
-                                     device=dev))
-    reliable = wmf_stage(imgs[0], cams, state, disp, reliable, params,
-                         iters=params.wmf_iters)
-    mark("wmf_mark")
-    region_planes = fit_region_planes(generator, weak, disp,
-                                      reliable.cpu().numpy(), cams, params)
-    mark("ransac")
-    labels = torch.as_tensor(weak.labels_full, dtype=torch.int64,
-                             device=dev)
-    weak_region = torch.as_tensor(weak.text == -1, device=dev)
-    if params.border_check:
-        region_planes = border_veto(cams, region_planes, weak, disp, params)
-    state2, reliable2, disp2 = fill_stage(
-        cams, state, torch.as_tensor(region_planes, device=dev), labels,
-        weak_region, reliable, params)
-    mark("fill")
-    textured = torch.as_tensor(weak.text == 1, device=dev)[labels]
-    state2, disp2, reliable2 = wmf_final_stage(
-        imgs[0], cams, state2, disp2, reliable2, textured, params,
-        iters=params.wmf_final_iters)
-    mark("wmf_final")
-    depth, n_world = finalize_stage(cams, state2)
-    result = TsarResult(depth=depth.cpu().numpy(),
-                        normal_world=n_world.cpu().numpy(),
-                        normal_cam=state2.normal.cpu().numpy(),
-                        cost=state2.cost.cpu().numpy(),
-                        confidence=confid.cpu().numpy(),
-                        reliable=reliable2.cpu().numpy(),
-                        region_planes=region_planes,
-                        depth_pm=depth_map(state, cams).cpu().numpy())
-    mark("finalize")
+    with trace.stage("confidence", timer):
+        confid, _, disp = confidence_stage(imgs, view_ids, cams, state,
+                                           params)
+    with trace.stage("wmf_mark", timer):
+        reliable = (torch.ones((H, W), dtype=torch.bool, device=dev)
+                    if reliable_seed is None
+                    else torch.as_tensor(np.asarray(reliable_seed, bool),
+                                         device=dev))
+        reliable = wmf_stage(imgs[0], cams, state, disp, reliable, params,
+                             iters=params.wmf_iters)
+    with trace.stage("ransac", timer):
+        region_planes = fit_region_planes(generator, weak, disp,
+                                          reliable.cpu().numpy(), cams,
+                                          params)
+    with trace.stage("fill", timer):
+        labels = torch.as_tensor(weak.labels_full, dtype=torch.int64,
+                                 device=dev)
+        weak_region = torch.as_tensor(weak.text == -1, device=dev)
+        if params.border_check:
+            region_planes = border_veto(cams, region_planes, weak, disp,
+                                        params)
+        state2, reliable2, disp2 = fill_stage(
+            cams, state, torch.as_tensor(region_planes, device=dev), labels,
+            weak_region, reliable, params)
+    with trace.stage("wmf_final", timer):
+        textured = torch.as_tensor(weak.text == 1, device=dev)[labels]
+        state2, disp2, reliable2 = wmf_final_stage(
+            imgs[0], cams, state2, disp2, reliable2, textured, params,
+            iters=params.wmf_final_iters)
+    with trace.stage("finalize", timer):
+        depth, n_world = finalize_stage(cams, state2)
+        with trace.span("finalize.readback"):
+            result = TsarResult(depth=depth.cpu().numpy(),
+                                normal_world=n_world.cpu().numpy(),
+                                normal_cam=state2.normal.cpu().numpy(),
+                                cost=state2.cost.cpu().numpy(),
+                                confidence=confid.cpu().numpy(),
+                                reliable=reliable2.cpu().numpy(),
+                                region_planes=region_planes,
+                                depth_pm=depth_map(state, cams).cpu().numpy())
     return result

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 from scipy import ndimage
 
+from tsar_mvs_tpu_torch import trace
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 
 _FOUR_CONN = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)
@@ -202,66 +203,71 @@ def detect_weak_texture(gray: np.ndarray, params: AlgorithmParams,
     scale (main.cpp:375-379); smaller images may use fewer levels."""
     H, W = gray.shape
     scale = 2 ** pyr_levels
-    down = gray
-    for _ in range(pyr_levels):
-        down = pyr_down(down)
-    edges = roberts(down)
-    edges = np.where(edges > params.rob_thr, 255, 0).astype(np.uint8)
+    with trace.span("weak_texture.edges"):
+        down = gray
+        for _ in range(pyr_levels):
+            down = pyr_down(down)
+        edges = roberts(down)
+        edges = np.where(edges > params.rob_thr, 255, 0).astype(np.uint8)
 
     # Pass 1: find big regions, split them along straight boundary lines.
-    labels0, counts0, weak0 = connect(edges, params.weak_text_num)
-    for region in weak0:
-        boundary = region_boundary(labels0, region)
-        for seg in hough_segments(boundary, params.hough_thr,
-                                  params.min_line_length,
-                                  params.max_line_gap):
-            draw_segment(edges, seg, 255)
+    with trace.span("weak_texture.label"):
+        labels0, counts0, weak0 = connect(edges, params.weak_text_num)
+    with trace.span("weak_texture.hough"):
+        for region in weak0:
+            boundary = region_boundary(labels0, region)
+            for seg in hough_segments(boundary, params.hough_thr,
+                                      params.min_line_length,
+                                      params.max_line_gap):
+                draw_segment(edges, seg, 255)
 
-    # Border cleanup (main.cpp:444-456): outermost row/col copies its
-    # inner neighbor's non-edge status.
-    edges[:, 0] = np.where(edges[:, 1] == 0, 0, edges[:, 0])
-    edges[:, -1] = np.where(edges[:, -2] == 0, 0, edges[:, -1])
-    edges[0, :] = np.where(edges[1, :] == 0, 0, edges[0, :])
-    edges[-1, :] = np.where(edges[-2, :] == 0, 0, edges[-1, :])
+        # Border cleanup (main.cpp:444-456): outermost row/col copies its
+        # inner neighbor's non-edge status.
+        edges[:, 0] = np.where(edges[:, 1] == 0, 0, edges[:, 0])
+        edges[:, -1] = np.where(edges[:, -2] == 0, 0, edges[:, -1])
+        edges[0, :] = np.where(edges[1, :] == 0, 0, edges[0, :])
+        edges[-1, :] = np.where(edges[-2, :] == 0, 0, edges[-1, :])
 
     # Pass 2: final labeling + trueweak filter.
-    labels, counts, weak = connect(edges, params.weak_text_num)
-    M = counts.size
+    with trace.span("weak_texture.label"):
+        labels, counts, weak = connect(edges, params.weak_text_num)
+    with trace.span("weak_texture.regions"):
+        M = counts.size
 
-    sy = np.arange(labels.shape[0])
-    sx = np.arange(labels.shape[1])
-    sum_x = np.bincount(labels.ravel(),
-                        weights=np.broadcast_to(sx, labels.shape).ravel(),
-                        minlength=M)
-    sum_y = np.bincount(labels.ravel(),
-                        weights=np.broadcast_to(sy[:, None],
-                                                labels.shape).ravel(),
-                        minlength=M)
-    cnt = np.maximum(counts, 1)
-    cenx = sum_x * float(scale) / cnt   # full-res units (main.cpp:561-565)
-    ceny = sum_y * float(scale) / cnt
+        sy = np.arange(labels.shape[0])
+        sx = np.arange(labels.shape[1])
+        sum_x = np.bincount(labels.ravel(),
+                            weights=np.broadcast_to(sx, labels.shape).ravel(),
+                            minlength=M)
+        sum_y = np.bincount(labels.ravel(),
+                            weights=np.broadcast_to(sy[:, None],
+                                                    labels.shape).ravel(),
+                            minlength=M)
+        cnt = np.maximum(counts, 1)
+        cenx = sum_x * float(scale) / cnt   # full-res units (main.cpp:561-565)
+        ceny = sum_y * float(scale) / cnt
 
-    text = np.ones(M, np.int8)
-    size = np.zeros(M, np.int32)
-    slices = ndimage.find_objects(labels, max_label=M - 1)
-    for lab in weak:
-        sl = slices[lab - 1]
-        if sl is None:
-            continue
-        ys_, xs_ = sl
-        xsize = xs_.stop - 1 - xs_.start
-        ysize = ys_.stop - 1 - ys_.start
-        xysize = xsize * ysize
-        # Trueweak: compact (bbox area < size_rat * count) or huge
-        # (main.cpp:518-532).
-        if xysize < params.size_rat * counts[lab] or counts[lab] > 100000:
-            text[lab] = -1
-            size[lab] = max(xsize, ysize)
+        text = np.ones(M, np.int8)
+        size = np.zeros(M, np.int32)
+        slices = ndimage.find_objects(labels, max_label=M - 1)
+        for lab in weak:
+            sl = slices[lab - 1]
+            if sl is None:
+                continue
+            ys_, xs_ = sl
+            xsize = xs_.stop - 1 - xs_.start
+            ysize = ys_.stop - 1 - ys_.start
+            xysize = xsize * ysize
+            # Trueweak: compact (bbox area < size_rat * count) or huge
+            # (main.cpp:518-532).
+            if xysize < params.size_rat * counts[lab] or counts[lab] > 100000:
+                text[lab] = -1
+                size[lab] = max(xsize, ysize)
 
-    # Upsample labels to full res with index clamping (main.cpp:552-560).
-    iy = np.minimum(np.arange(H) // scale, labels.shape[0] - 1)
-    ix = np.minimum(np.arange(W) // scale, labels.shape[1] - 1)
-    labels_full = labels[np.ix_(iy, ix)].astype(np.int32)
+        # Upsample labels to full res with index clamping (main.cpp:552-560).
+        iy = np.minimum(np.arange(H) // scale, labels.shape[0] - 1)
+        ix = np.minimum(np.arange(W) // scale, labels.shape[1] - 1)
+        labels_full = labels[np.ix_(iy, ix)].astype(np.int32)
 
     return WeakTexture(labels_full=labels_full,
                        labels_small=labels.astype(np.int32), text=text,

@@ -28,24 +28,17 @@ views into groups whose moments share a walk of the window (``TILING``).
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import NamedTuple
 
 import torch
 
-from tsar_mvs_tpu_torch import _build
+from tsar_mvs_tpu_torch import _build, trace
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops.ncc import (MultiviewCost, aggregate,
                                         direct_cost, window_offsets)
 from tsar_mvs_tpu_torch.ops.sampling import PackedImage, pack_image
 
-# Kernel launches since the last reset (read by chip_smoke.py), in all,
-# by (grid rows, grid columns, candidates of the launch, channels, n_best)
-# and by the kernel instance they took (`instance_for`).
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
-LAUNCHES_BY_INSTANCE: Counter = Counter()
 
 # Candidates per launch (their moments and aggregation state stay in
 # registers), source views per launch (the view table is a kernel
@@ -202,7 +195,6 @@ def multiview_cost_direct(views: DirectViews, s0: torch.Tensor,
     if not s0.is_cuda:
         return multiview_cost_direct_plain(views, s0, sx, sy, stats, params,
                                            parity)
-    global LAUNCHES
     V, CH = len(views.packed), views.channels
     if not 1 <= V <= MAX_V or views.ids.shape != (V,):
         raise ValueError(f"multiview_cost_direct: 1 to {MAX_V} views with "
@@ -282,10 +274,11 @@ def multiview_cost_direct(views: DirectViews, s0: torch.Tensor,
             cost[c0].data_ptr(), ratio[c0].data_ptr(),
             best_view[c0].data_ptr(), stream)
         _build.check(code, "tsar_direct_multiview")
-        LAUNCHES += 1
-        LAUNCHES_BY_SHAPE[(Hc, Wc, n, CH, int(params.n_best))] += 1
-        LAUNCHES_BY_INSTANCE[instance_for(n, CH, V, int(params.n_best),
-                                          window)] += 1
+        trace.count("launches.b3")
+        trace.count("launches_by_shape.b3",
+                    (Hc, Wc, n, CH, int(params.n_best)))
+        trace.count("launches_by_instance.b3",
+                    instance_for(n, CH, V, int(params.n_best), window))
     shape = (*lead, Hc, Wc)
     return MultiviewCost(cost=cost.reshape(shape),
                          best_view=best_view.reshape(shape),

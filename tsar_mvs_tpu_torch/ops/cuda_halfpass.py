@@ -23,16 +23,11 @@ cost kernel in the JAX package's jitted PatchMatch step
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
-from tsar_mvs_tpu_torch import _build
+from tsar_mvs_tpu_torch import _build, trace
 
-# Kernel launches since the last reset (read by chip_smoke.py), in all and
-# by (kernel, grid rows, grid columns, banks: 1 for the refine kernels).
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # Banks a launch and samples a bank (csrc/halfpass.cu's Banks table).
 MAX_BANKS = 8
@@ -41,9 +36,8 @@ CONSTS = 13
 
 
 def _count(kernel: str, Hc: int, Wc: int, banks: int = 1) -> None:
-    global LAUNCHES
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(kernel, Hc, Wc, banks)] += 1
+    trace.count("launches.b6")
+    trace.count("launches_by_shape.b6", (kernel, Hc, Wc, banks))
 
 
 def _grid(H: int, W: int, packed: bool, parity: int) -> tuple[int, int]:

@@ -19,21 +19,16 @@ around it.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import Sequence
 
 import torch
 
-from tsar_mvs_tpu_torch import _build
+from tsar_mvs_tpu_torch import _build, trace
 from tsar_mvs_tpu_torch.config import AlgorithmParams
 from tsar_mvs_tpu_torch.ops.ncc import (MultiviewCost, RefStats,
                                         aggregate_streaming, ncc_epilogue,
                                         window_offsets)
 
-# Kernel launches since the last reset (read by chip_smoke.py), in all and
-# by (grid rows, grid columns, candidates of the launch).
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # Candidates per launch (the kernel keeps each candidate's moments and
 # running top-2 in registers) and source views per launch (its view table
@@ -114,7 +109,6 @@ def multiview_cost(vols: Sequence[torch.Tensor], s_lo: float,
     if not s0.is_cuda:
         return multiview_cost_plain(vols, s_lo, inv_ds, ids, s0, sx, sy,
                                     stats, params, parity)
-    global LAUNCHES
     V = len(vols)
     if not 1 <= V <= MAX_V or len(inv_ds) != V or ids.shape != (V,):
         raise ValueError(f"multiview_cost: 1 to {MAX_V} views with one "
@@ -173,8 +167,8 @@ def multiview_cost(vols: Sequence[torch.Tensor], s_lo: float,
             float(params.min_var), cost[c0].data_ptr(),
             ratio[c0].data_ptr(), best_view[c0].data_ptr(), stream)
         _build.check(code, "tsar_svol_ncc_multiview")
-        LAUNCHES += 1
-        LAUNCHES_BY_SHAPE[(Hc, Wc, n)] += 1
+        trace.count("launches.b1")
+        trace.count("launches_by_shape.b1", (Hc, Wc, n))
     shape = (*lead, Hc, Wc)
     return MultiviewCost(cost=cost.reshape(shape),
                          best_view=best_view.reshape(shape),

@@ -22,18 +22,10 @@ This module imports nothing of ``models/ransac.py``.
 
 from __future__ import annotations
 
-from collections import Counter
-
 import numpy as np
 import torch
 
-from tsar_mvs_tpu_torch import _build
-
-# Calls since the last reset (read by chip_smoke.py), one a view however
-# many CUDA launches it makes, in all and by (regions, largest region's
-# points).
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
+from tsar_mvs_tpu_torch import _build, trace
 
 # Mirrors of csrc/ransac.cu's constants: hypotheses a round and the decide
 # block's threads; the rounds' chunks (at least CHUNK_MIN points, about
@@ -117,7 +109,6 @@ def ransac_regions(points: torch.Tensor, offsets: torch.Tensor,
     deltas (R, anneal_rounds, 4, 4) f32, thr0, total and gain (R,) f32,
     all on one CUDA device; thr_max, thr_step, ratio, eps and tiny
     float32 values, passed as they are."""
-    global LAUNCHES
     if not points.is_cuda:
         raise ValueError("cuda_ransac.ransac_regions: CUDA tensors expected")
     if points.dim() != 2 or points.shape[1] != 3:
@@ -184,6 +175,6 @@ def ransac_regions(points: torch.Tensor, offsets: torch.Tensor,
         state.data_ptr(), plane.data_ptr(), count.data_ptr(),
         thr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "tsar_ransac_regions")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(R, max(n))] += 1
+    trace.count("launches.b5")
+    trace.count("launches_by_shape.b5", (R, max(n)))
     return plane, count, thr

@@ -13,18 +13,11 @@ eligibility gate.
 
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
 
-from tsar_mvs_tpu_torch import _build
+from tsar_mvs_tpu_torch import _build, trace
 from tsar_mvs_tpu_torch.ops.sampling import (bilinear_sample_packed,
                                              pack_image)
-
-# Kernel launches since the last reset (read by chip_smoke.py), in all and
-# by (planes, image rows, image columns).
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # Planes per step of the plain version (bounds its f32 temporaries).
 _PLAIN_CHUNK = 16
@@ -62,7 +55,6 @@ def build_svolume_view(src: torch.Tensor, A: torch.Tensor,
     tensors run the plain version."""
     if not src.is_cuda:
         return build_svolume_view_plain(src, A, b, s_lo, ds, S)
-    global LAUNCHES
     if src.dim() != 2 or A.shape != (3, 3) or b.shape != (3,):
         raise ValueError("build_svolume_view: src (H, W), A (3, 3), b (3,)")
     if not (A.is_cuda and b.is_cuda and A.device == src.device
@@ -83,6 +75,6 @@ def build_svolume_view(src: torch.Tensor, A: torch.Tensor,
                                torch.cuda.current_stream(src.device)
                                .cuda_stream)
     _build.check(code, "tsar_warp_build")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(int(S), H, W)] += 1
+    trace.count("launches.b2")
+    trace.count("launches_by_shape.b2", (int(S), H, W))
     return out

@@ -21,16 +21,11 @@ plain version to the bit. This module imports nothing of ``ops/wmf.py``.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
-from tsar_mvs_tpu_torch import _build
+from tsar_mvs_tpu_torch import _build, trace
 
-# Kernel launches since the last reset (read by chip_smoke.py), in all and
-# by (image rows, image columns, radius, gap) of the pass.
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # Lanes a pixel and samples a lane (csrc/wmf.cu): a pass takes at most
 # MAX_O offsets.
@@ -59,7 +54,6 @@ def median_plane(gray: torch.Tensor, disp: torch.Tensor,
     inv_sc 1 / sigma_color^2. The medians are f32, donor_idx and num
     int64, as the plain version returns them. `radius` keys the launch
     count only."""
-    global LAUNCHES
     if not gray.is_cuda:
         raise ValueError("cuda_wmf.median_plane: CUDA tensors expected")
     if gray.dim() != 2:
@@ -104,6 +98,7 @@ def median_plane(gray: torch.Tensor, disp: torch.Tensor,
         donor_idx.data_ptr(), donor_disp.data_ptr(), num.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "tsar_wmf_median")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(H, W, int(radius), gap_of(offsets))] += 1
+    trace.count("launches.b4")
+    trace.count("launches_by_shape.b4",
+                (H, W, int(radius), gap_of(offsets)))
     return med[0], med[1], med[2], donor_idx, donor_disp, num

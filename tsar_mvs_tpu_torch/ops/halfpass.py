@@ -19,9 +19,9 @@ in their rounding order: 3-term sums written out as (a0 b0 + a1 b1) +
 a2 b2, the normalisation as v * (1 / sqrt(|v|^2 + eps)) with a correctly
 rounded root (torch.rsqrt is not correctly rounded on the card, nor
 float32 sqrt on every CPU), every step a torch op of its own, so the
-kernel equals its plain version to the bit. ``PLAIN_CALLS`` counts
-the plain versions' calls (read by chip_smoke.py: 0 on the card's main
-path).
+kernel equals its plain version to the bit. The trace counter
+``halfpass.plain_calls`` counts the plain versions' calls (read by
+chip_smoke.py: 0 on the card's main path).
 """
 
 from __future__ import annotations
@@ -31,11 +31,9 @@ from typing import NamedTuple
 import torch
 
 from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch import trace
 from tsar_mvs_tpu_torch.ops import checkerboard as cb
 from tsar_mvs_tpu_torch.ops import cuda_halfpass
-
-# Calls of the plain versions since the last reset, by function.
-PLAIN_CALLS = 0
 
 # normalize's epsilon (geo.normalize).
 EPS = 1e-20
@@ -175,8 +173,7 @@ def _scatter(state, parity: int, packed: bool, take: torch.Tensor, new):
 def prop_select_plain(state, parity: int, banks, grid: Grid) -> Candidates:
     """Plain version of kernel B6's prop_select: cb.select_candidates over
     `banks` at the grid's positions, with the candidates' plane scalars."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    trace.count("halfpass.plain_calls")
     cands = cb.select_candidates(state.normal, state.d, state.cost, banks)
     n, d, valid = cands.normal, cands.d, cands.valid
     if grid.packed:
@@ -203,8 +200,7 @@ def prop_accept_plain(state, parity: int, cands: Candidates, mv,
     depth range keep their cost (else +inf); the banks accept in order,
     each strictly below the running best (from the stored cost); the
     winners go into `state` in place."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    trace.count("halfpass.plain_calls")
     xx, yy = grid.coords[parity]
     c = grid.consts
     depth = _depth(cands.normal, cands.d, xx, yy, c)
@@ -237,8 +233,7 @@ def refine_propose_plain(state, parity: int, grid: Grid, u: torch.Tensor,
     perturbed normal n + (2 delta_n r - delta_n), normalised and turned
     to face the camera, the plane through the new depth, and its plane
     scalars."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    trace.count("halfpass.plain_calls")
     cur = _gather(state, parity, grid.packed)
     xx, yy = grid.coords[parity]
     c = grid.consts
@@ -268,8 +263,7 @@ def refine_accept_plain(state, parity: int, grid: Grid, prop: Proposal,
     cost is strictly below the stored one (dense grid: and at the
     parity's pixels), it replaces the state's plane, cost, ratio and best
     view, in place."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    trace.count("halfpass.plain_calls")
     cur = _gather(state, parity, grid.packed)
     _scatter(state, parity, grid.packed, mv.cost < cur.cost, type(state)(
         normal=prop.normal, d=prop.d, cost=mv.cost, ratio=mv.ratio,

@@ -39,6 +39,7 @@ from tsar_mvs_tpu_torch.utils import display, dmb, ply, scene_io
 from tsar_mvs_tpu_torch.utils.pfm import read_pfm
 from tsar_mvs_tpu_torch.utils.synthetic import read_png_gray
 from tsar_mvs_tpu_torch import geometry as geo
+from tsar_mvs_tpu_torch import trace
 from tsar_mvs_tpu_torch.models import fusion as fusion_mod
 from tsar_mvs_tpu_torch.models import patchmatch as pm
 from tsar_mvs_tpu_torch.models import tsar
@@ -316,107 +317,129 @@ def process_view(scene: Scene, ref_idx: int,
     without one (device="cpu" runs the plain versions of the kernels).
     `generator` (a torch.Generator on `device`) defaults to one seeded 0.
     `timer(name)`, when given, is called at each stage boundary with the
-    name of the stage that just ended (the stage names of bench.py)."""
-    t0 = time.time()
-    device = resolve_device(device)
-    mark = timer or (lambda name: None)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    params = default_params_for_scene(scene, params)
-    order, view_ids = view_image_order(scene, ref_idx, params.max_views,
-                                       min_angle=params.min_angle,
-                                       max_angle=params.max_angle)
-    cams = geo.build_camera_set([scene.P[i] for i in order],
-                                cam_scale=params.cam_scale,
-                                depth_min=scene.depth_min,
-                                depth_max=scene.depth_max, device=device)
-    name = scene.names[ref_idx]
-    gray = scene.images[ref_idx]
-    mark("setup")
-    weak = wt.detect_weak_texture(gray, params)
-    mark("weak_texture")
-    slic_labels, slic_res = run_slic_stage(gray, params, device)
-    slic_adj, slic_sizes, slic_borders = \
-        slic_mod.superpixel_graph_host(slic_res.labels.cpu().numpy())
-    mark("slic")
+    name of the stage that just ended (the stage names of bench.py). The
+    view is a trace span (`trace.py`), each stage a span of its name inside
+    it."""
+    with trace.span("view", view=ref_idx):
+        return _process_view(scene, ref_idx, params, generator, out_dir,
+                             pm_iterations, write_ply, write_vis, device,
+                             timer)
 
-    imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
-                           device=device)
-    prior_dir = scene.root / "APD" / name
-    reliable_seed = None
-    if (prior_dir / "depths_geom.dmb").exists():
-        def load(fname):
-            return torch.tensor(dmb.read_dmb(prior_dir / fname),
-                                dtype=torch.float32, device=device)
-        state = pm.state_from_prior(load("depths_geom.dmb"),
-                                    load("normals.dmb"), cams)
-        if (prior_dir / "weak.png").exists():
-            reliable_seed = read_png_gray(prior_dir / "weak.png") > 0
-        if (pm_iterations or 0) > 0:
-            state = pm.run_patchmatch(generator, imgs, view_ids, cams, params,
-                                      iterations=pm_iterations,
-                                      init_state=state)
-    else:
-        iters = params.iterations if pm_iterations is None else pm_iterations
-        levels = pyramid_levels_for(imgs.shape[1])
-        imgs_color = None
-        if params.color_processing:
-            imgs_color = torch.as_tensor(scene.load_color()[order],
-                                         dtype=torch.float32, device=device)
-        state = pm.run_patchmatch_pyramid(
-            generator, imgs, view_ids, [scene.P[i] for i in order], params,
-            levels=levels,
-            iterations_per_level=pm.iteration_schedule(
-                dataclasses.replace(params, iterations=iters), len(levels)),
-            depth_min=scene.depth_min, depth_max=scene.depth_max,
-            svol_planes_per_level=scene_plane_counts(scene, params, levels,
-                                                     len(view_ids)),
-            imgs_color=imgs_color)
-    mark("patchmatch")
+
+def _process_view(scene, ref_idx, params, generator, out_dir, pm_iterations,
+                  write_ply, write_vis, device, timer) -> tsar.TsarResult:
+    with trace.stage("setup", timer):
+        t0 = time.time()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        params = default_params_for_scene(scene, params)
+        order, view_ids = view_image_order(scene, ref_idx, params.max_views,
+                                           min_angle=params.min_angle,
+                                           max_angle=params.max_angle)
+        cams = geo.build_camera_set([scene.P[i] for i in order],
+                                    cam_scale=params.cam_scale,
+                                    depth_min=scene.depth_min,
+                                    depth_max=scene.depth_max, device=device)
+        name = scene.names[ref_idx]
+        gray = scene.images[ref_idx]
+    with trace.stage("weak_texture", timer):
+        weak = wt.detect_weak_texture(gray, params)
+    with trace.stage("slic", timer):
+        with trace.span("slic.superpixels"):
+            slic_labels, slic_res = run_slic_stage(gray, params, device)
+        with trace.span("slic.graph"):
+            slic_adj, slic_sizes, slic_borders = \
+                slic_mod.superpixel_graph_host(slic_res.labels.cpu().numpy())
+
+    with trace.stage("patchmatch", timer):
+        prior_dir = scene.root / "APD" / name
+        prior = (prior_dir / "depths_geom.dmb").exists()
+        reliable_seed = imgs_color = None
+        with trace.span("patchmatch.inputs"):
+            imgs = torch.as_tensor(scene.images[order], dtype=torch.float32,
+                                   device=device)
+            if prior:
+                def load(fname):
+                    return torch.tensor(dmb.read_dmb(prior_dir / fname),
+                                        dtype=torch.float32, device=device)
+                state = pm.state_from_prior(load("depths_geom.dmb"),
+                                            load("normals.dmb"), cams)
+                if (prior_dir / "weak.png").exists():
+                    reliable_seed = read_png_gray(prior_dir / "weak.png") > 0
+            elif params.color_processing:
+                imgs_color = torch.as_tensor(scene.load_color()[order],
+                                             dtype=torch.float32,
+                                             device=device)
+        if prior:
+            if (pm_iterations or 0) > 0:
+                state = pm.run_patchmatch(generator, imgs, view_ids, cams,
+                                          params, iterations=pm_iterations,
+                                          init_state=state)
+        else:
+            iters = (params.iterations if pm_iterations is None
+                     else pm_iterations)
+            levels = pyramid_levels_for(imgs.shape[1])
+            with trace.span("patchmatch.pyramid"):
+                state = pm.run_patchmatch_pyramid(
+                    generator, imgs, view_ids, [scene.P[i] for i in order],
+                    params, levels=levels,
+                    iterations_per_level=pm.iteration_schedule(
+                        dataclasses.replace(params, iterations=iters),
+                        len(levels)),
+                    depth_min=scene.depth_min, depth_max=scene.depth_max,
+                    svol_planes_per_level=scene_plane_counts(
+                        scene, params, levels, len(view_ids)),
+                    imgs_color=imgs_color)
     result = tsar.tsar_refine(imgs, cams, view_ids, params, state, weak,
-                              generator, timer=mark,
+                              generator, timer=timer,
                               reliable_seed=reliable_seed)
 
-    out_dir = Path(out_dir) if out_dir is not None \
-        else scene.root / "results" / name
-    out_dir.mkdir(parents=True, exist_ok=True)
-    dmb.write_dmb(out_dir / "TSAR_disp.dmb", result.depth)
-    dmb.write_dmb(out_dir / "TSAR_normals.dmb", result.normal_world)
-    display.write_png(out_dir / "TSAR_slic.png",
-                      display.slic_boundaries_for_display(
-                          slic_res.labels.cpu().numpy(),
-                          pm.downsample_2x(pm.downsample_2x(
-                              torch.as_tensor(gray))).numpy()))
-    dmb.write_dmb(out_dir / "TSAR_slic_labels.dmb",
-                  slic_labels.astype(np.float32))
-    write_slic_graph(out_dir / "TSAR_slic_graph.txt", slic_adj, slic_sizes,
-                     slic_borders)
-    if write_ply:
-        cams_world = geo.build_camera_set([scene.P[i] for i in order],
-                                          cam_scale=params.cam_scale,
-                                          rebase=False, device="cpu")
-        rgb = (scene.load_color()[ref_idx] if params.color_processing
-               else None)
-        write_view_ply(out_dir / "TSAR_model.ply", result, gray, cams_world,
-                       rgb=rgb)
-    if write_vis:
-        display.write_png(out_dir / "TSAR_normals.png",
-                          display.add_sphere_legend(
-                              display.normals_for_display(
-                                  result.normal_world)))
-        display.write_png(out_dir / "TSAR_disp.png",
-                          display.disparity_for_display(result.depth))
-        display.write_png(out_dir / "TSAR_confidence.png",
-                          display.confidence_for_display(result.confidence))
-        display.write_parameters_file(out_dir / "TSAR_params.txt", params)
-    runtime = time.time() - t0
-    with (out_dir / "TSAR_results.txt").open("a") as fh:
-        fh.write(f"Total runtime: {runtime:.3f} sec "
-                 f"( {runtime / 60.0:.3f} min)\n")
-        fh.write(f"SLIC: {len(slic_sizes)} superpixels, "
-                 f"{sum(len(v) for v in slic_adj.values()) // 2} "
-                 f"adjacencies, {len(slic_borders)} shared borders\n")
-    mark("artifacts")
+    with trace.stage("artifacts", timer):
+        out_dir = Path(out_dir) if out_dir is not None \
+            else scene.root / "results" / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with trace.span("artifacts.maps"):
+            dmb.write_dmb(out_dir / "TSAR_disp.dmb", result.depth)
+            dmb.write_dmb(out_dir / "TSAR_normals.dmb", result.normal_world)
+        with trace.span("artifacts.slic"):
+            display.write_png(out_dir / "TSAR_slic.png",
+                              display.slic_boundaries_for_display(
+                                  slic_res.labels.cpu().numpy(),
+                                  pm.downsample_2x(pm.downsample_2x(
+                                      torch.as_tensor(gray))).numpy()))
+            dmb.write_dmb(out_dir / "TSAR_slic_labels.dmb",
+                          slic_labels.astype(np.float32))
+            write_slic_graph(out_dir / "TSAR_slic_graph.txt", slic_adj,
+                             slic_sizes, slic_borders)
+        if write_ply:
+            cams_world = geo.build_camera_set([scene.P[i] for i in order],
+                                              cam_scale=params.cam_scale,
+                                              rebase=False, device="cpu")
+            rgb = (scene.load_color()[ref_idx] if params.color_processing
+                   else None)
+            write_view_ply(out_dir / "TSAR_model.ply", result, gray,
+                           cams_world, rgb=rgb)
+        if write_vis:
+            display.write_png(out_dir / "TSAR_normals.png",
+                              display.add_sphere_legend(
+                                  display.normals_for_display(
+                                      result.normal_world)))
+            display.write_png(out_dir / "TSAR_disp.png",
+                              display.disparity_for_display(result.depth))
+            display.write_png(out_dir / "TSAR_confidence.png",
+                              display.confidence_for_display(
+                                  result.confidence))
+            display.write_parameters_file(out_dir / "TSAR_params.txt",
+                                          params)
+        with trace.span("artifacts.log"):
+            runtime = time.time() - t0
+            with (out_dir / "TSAR_results.txt").open("a") as fh:
+                fh.write(f"Total runtime: {runtime:.3f} sec "
+                         f"( {runtime / 60.0:.3f} min)\n")
+                fh.write(f"SLIC: {len(slic_sizes)} superpixels, "
+                         f"{sum(len(v) for v in slic_adj.values()) // 2} "
+                         f"adjacencies, {len(slic_borders)} shared borders\n")
     return result
 
 
