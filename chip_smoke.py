@@ -71,6 +71,15 @@ line (the 2K scene renders in one spawned process per view):
    timed at each level beside its bound and its plain version; view 0's
    pyramid must launch fewer than PYRAMID_LAUNCHES kernels of any kind
    (the profiler's count, kernel_times.patchmatch_split);
+   (e) kernel B7 (the weak-texture detection) against its plain version
+   (numpy and scipy) on the benchmark's 2K and dino views
+   (benchmark/scene.py, the eth3d-2k and middlebury-dino configurations)
+   and on kernel_times.B7_CASES (dashed strokes whose gaps the Hough
+   split closes, odd sides, one and no pyramid level, a constant image,
+   noise): every field of WeakTexture equal to the bit, the same
+   segments drawn, B7's launches its plan's; then B7 timed at the 2K and
+   dino view 0 (upload to arrays, its kernels' device time) beside its
+   bound and the plain version;
 6. the scene on the same scene: process_scene(resume=True) runs the 7
    other views (view 0's artifacts from phase 5 are kept), fuse_scene
    with the default FusionParams, and the fused cloud's F1@2cm against
@@ -149,7 +158,9 @@ line (the 2K scene renders in one spawned process per view):
 
 Every view of phases 5-10 launches B6 twice a propagation half-pass and
 twice a refine scale (312 a 2K view; none of the plain half-pass, whose
-calls the trace counter halfpass.plain_calls counts), B4 once per WMF
+calls the trace counter halfpass.plain_calls counts), B7 its plan's
+launches (17 at 2K; the plain weak-texture detection never: trace counter
+weak_texture.plain_calls), B4 once per WMF
 pass (10 a view, 80 in the sharded scene) and B5 once (8 in the sharded
 scene; a view without a trueweak region of 3 reliable points launches no
 B5, and the checks count such views from the trace counter
@@ -617,7 +628,8 @@ def reset_launches() -> None:
     RANSAC region and the plain half-pass's calls to 0."""
     trace.clear(*(f"launches.{b}" for b in KERNELS.values()),
                 *(f"launches_by_shape.{b}" for b in KERNELS.values()),
-                "ransac.views_without_regions", "halfpass.plain_calls")
+                "ransac.views_without_regions", "halfpass.plain_calls",
+                "launches.b7", "weak_texture.plain_calls")
 
 
 def plain_halfpass_calls() -> int:
@@ -704,6 +716,11 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     by_shape = read_launches_by_shape()
     plain = plain_halfpass_calls()
     peak = torch.cuda.max_memory_allocated()
+    from tsar_mvs_tpu_torch.ops import cuda_weak_texture
+    b7 = [trace.counter("launches.b7"),
+          len(cuda_weak_texture.plan(H, W, 2, AlgorithmParams()
+                                     .weak_text_num).kernels),
+          trace.counter("weak_texture.plain_calls")]
 
     pm_acc = acc2_for(scene_gt, scene, 0, result.depth_pm)
     final_acc = acc2_for(scene_gt, scene, 0, result.depth)
@@ -721,7 +738,7 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     res = {"seconds": total, "stages": stages, "peak_bytes": peak,
            "launches": launches, "launches_by_shape": by_shape, **acc,
            "plain_halfpass_calls": plain, "missing": missing,
-           "depth_finite": finite}
+           "depth_finite": finite, "b7_launches_plan_plain": b7}
     print(f"main path: {json.dumps(res)}", flush=True)
     if missing or not finite:
         raise SystemExit(f"main path artifacts: missing {missing}, "
@@ -735,6 +752,10 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
                          f"regions) and B6 (two a half-pass and two a "
                          f"refine scale) only, and no plain half-pass: "
                          f"{launches}, plain {plain}")
+    if b7[0] != b7[1] or b7[2]:
+        raise SystemExit(f"the weak-texture stage launches B7's plan and "
+                         f"never the plain version: launches, plan, plain "
+                         f"calls {b7}")
     for kernel, total in launches.items():
         if sum(sh["launches"] for sh in by_shape[kernel]) != total:
             raise SystemExit(f"{kernel}: launches by shape {by_shape} do "
@@ -742,6 +763,47 @@ def run_main_path(scene_gt, root: Path, dev) -> dict:
     if acc["acc2_pm"] < 0.95 or acc["acc2_final"] < 0.95:
         raise SystemExit(f"accuracy below 0.95: {acc}")
     return res
+
+
+def benchmark_views(config_name: str, dev):
+    """The benchmark's views of a configuration (benchmark/scene.py, as
+    benchmark/run.py renders them) and its AlgorithmParams keywords."""
+    from benchmark import scene as bench_scene
+    config = json.loads((Path(__file__).resolve().parent / "benchmark" /
+                         "configs" / f"{config_name}.json").read_text())
+    W_, H_ = config["resolution"]
+    geo = config["scene"]
+    sd = bench_scene.make_scene(
+        H_, W_, config["images"], geo["texture_seed"], dev,
+        weak_fraction=geo["weak_fraction"], arc_radius=geo["arc_radius"],
+        arc_span_deg=geo["arc_span_deg"], pair_top_k=config["pair_top_k"])
+    return sd.images.cpu().numpy(), config["algorithm"]
+
+
+def run_b7_phase(dev) -> dict:
+    """Phase 5(e): B7 against its plain version, then timed."""
+    from tsar_mvs_tpu_torch import kernel_times as kt
+    from tsar_mvs_tpu_torch.config import AlgorithmParams
+    rows, times = [], {}
+    for config_name in ("eth3d-2k", "middlebury-dino"):
+        images, kw = benchmark_views(config_name, dev)
+        for view in range(min(8, len(images))):
+            rows.append(kt.check_b7(images[view], AlgorithmParams(**kw), 2,
+                                    dev, f"{config_name} view {view}"))
+        times[config_name] = kt.time_b7(images[0], AlgorithmParams(**kw),
+                                        dev)
+        del images
+    for name in kt.B7_CASES:
+        gray, kw, levels = kt.b7_case(name)
+        rows.append(kt.check_b7(gray, AlgorithmParams(**kw), levels, dev,
+                                name))
+    bad = [r for r in rows if not kt.b7_ok(r)]
+    print(f"B7 vs plain (phase 5e): {json.dumps(rows)} -> "
+          f"{'equal' if not bad else 'DIFFERENT'}", flush=True)
+    print(f"B7 times (phase 5e): {json.dumps(times)}", flush=True)
+    if bad:
+        raise SystemExit(f"B7 differs from its plain version: {bad}")
+    return {"rows": rows, "times": times}
 
 
 def run_scene_phase(scene_gt, root: Path, dev) -> dict:
@@ -1626,6 +1688,8 @@ def main() -> int:
         for r in main_res["launches_by_shape"]["halfpass"]})
     del calls
     torch.cuda.empty_cache()
+    b7_res = run_b7_phase(dev)
+    torch.cuda.empty_cache()
     plan = kt.launch_plan(scene, params)
     evaluations = sum(p["propagation"] + p["refinement"] + p["init"]
                       for p in plan)
@@ -1776,6 +1840,20 @@ def main() -> int:
          "checks": b6_rows,
          "launches_by_shape": main_res["launches_by_shape"]["halfpass"],
          "pyramid_launches": split["launches"]},
+        {"name": "weak_texture", "route": "cuda",
+         "source": "tsar_mvs_tpu_torch/csrc/weak_texture.cu",
+         "replaces": "none: a host stage in the JAX package "
+                     "(tsar_mvs_tpu/models/weak_texture.py, numpy and "
+                     "scipy)",
+         "launches": main_res["b7_launches_plan_plain"][0],
+         "max_abs_err": max(sum(v for v in r["mismatch"].values()
+                                if isinstance(v, int))
+                            for r in b7_res["rows"]),
+         **{k: b7_res["times"]["eth3d-2k"][k] for k in keys
+            if k != "library_ms"},
+         "library_ms": None,
+         "device_ms": b7_res["times"]["eth3d-2k"]["device_ms"],
+         "times": b7_res["times"], "checks": b7_res["rows"]},
     ]
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -65,6 +65,10 @@ SIGNATURES = {
                                      _P, _P, _P, _P, _P, _P],
     "tsar_halfpass_refine_accept": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _P, _P, _P, _P, _P, _P],
+    "tsar_weak_edges": [_P, _P],
+    "tsar_weak_label": [_P, _I, _P],
+    "tsar_weak_hough": [_P, _P],
+    "tsar_weak_regions": [_P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -177,7 +181,8 @@ def kernel_resources(log: str | None = None) -> list[str]:
         if m:
             k = re.search(r"\d+(svol_ncc\w*?_kernel|warp_build_kernel"
                           r"|direct_multiview_kernel|wmf_median_kernel"
-                          r"|ransac_\w+?_kernel|halfpass_\w+?_kernel)"
+                          r"|ransac_\w+?_kernel|halfpass_\w+?_kernel"
+                          r"|weak_\w+?_kernel)"
                           r"(\w*)", m.group(1))
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k \

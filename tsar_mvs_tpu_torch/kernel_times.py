@@ -95,6 +95,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -191,7 +192,8 @@ def time_ms(fn, repeats: int, warmup: int = 1) -> float:
 def device_times(fn) -> dict | None:
     """Device microseconds and launch counts of one call of `fn`, by
     kernel: {"b1": [us, n], "b2": [us, n], "b3": [us, n], "b4": [us, n],
-    "b6": [us, n], "other": [us, n] (every other kernel, copy and fill),
+    "b6": [us, n], "b7": [us, n], "other": [us, n] (every other kernel,
+    copy and fill),
     "b1_each_us":
     B1's launches one by one in launch order} from torch.profiler, or None
     when the profiler reports no device activity (it sometimes drops a
@@ -206,7 +208,8 @@ def device_times(fn) -> dict | None:
             fn()
             torch.cuda.synchronize()
         groups = {"b1": [0.0, 0], "b2": [0.0, 0], "b3": [0.0, 0],
-                  "b4": [0.0, 0], "b6": [0.0, 0], "other": [0.0, 0]}
+                  "b4": [0.0, 0], "b6": [0.0, 0], "b7": [0.0, 0],
+                  "other": [0.0, 0]}
         b1_each = []
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
@@ -215,7 +218,8 @@ def device_times(fn) -> dict | None:
                    else "b2" if "warp_build" in e.name
                    else "b3" if "direct_multiview" in e.name
                    else "b4" if "wmf_median" in e.name
-                   else "b6" if "halfpass_" in e.name else "other")
+                   else "b6" if "halfpass_" in e.name
+                   else "b7" if "weak_" in e.name else "other")
             groups[key][0] += e.time_range.elapsed_us()
             groups[key][1] += 1
             if key == "b1":
@@ -2265,6 +2269,181 @@ def time_all(scene, gt: dict, dev) -> dict:
     split = patchmatch_split(scene, params, dev)
     return {"b1": b1, "b2": b2, "b3": b3, "b1_windows": windows,
             "patchmatch": split}
+
+
+# --- kernel B7 (weak texture) ----------------------------------------------
+
+# tests/test_torch_pipeline.py's small-scene detector thresholds.
+B7_SMALL = dict(weak_text_num=25, hough_thr=12, min_line_length=12,
+                max_line_gap=3)
+B7_FIELDS = ("labels_full", "labels_small", "text", "cenx", "ceny", "size",
+             "counts")
+
+
+def dashed_image(H: int, W: int, seed: int, lines: int = 5, dash: int = 60,
+                 gap: int = 18, width: int = 6):
+    """(H, W) float32: a smooth ramp (not integer-valued) crossed by
+    `lines` dashed bright strokes at random places and angles: the
+    strokes' gaps join the flat areas into large pass-1 regions that the
+    Hough split cuts along the strokes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    img = 90 + 20 * (xx / W) + 10 * (yy / H)
+    for _ in range(lines):
+        cx, cy = rng.uniform(0.2, 0.8) * W, rng.uniform(0.2, 0.8) * H
+        th = rng.uniform(0, np.pi)
+        d = (xx - cx) * np.sin(th) - (yy - cy) * np.cos(th)
+        along = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+        on = np.mod(along + rng.uniform(0, dash + gap), dash + gap) < dash
+        img[(np.abs(d) < width / 2) & on] = 220
+    return img.astype(np.float32)
+
+
+B7_CASES = ("dashed_0", "dashed_1", "dashed_2", "dashed_odd",
+            "dashed_levels1", "integer_levels0", "float_levels0", "constant",
+            "noise", "dashed_2k", "dashed_dino")
+
+
+def b7_case(name: str) -> tuple[object, dict, int]:
+    """(gray, AlgorithmParams keywords, pyr_levels) of one of B7's stress
+    inputs (B7_CASES): dashed strokes at three seeds, on odd sides, at one
+    and at no pyramid level (integer-valued and not: both Roberts
+    branches), a constant image (the integer branch after the pyramid),
+    noise (no region over the floor) and strokes at the 2K and dino
+    sizes."""
+    import numpy as np
+    mid = dict(weak_text_num=500, hough_thr=40, min_line_length=40,
+               max_line_gap=6)
+    if name.startswith("dashed_") and name[7:].isdigit():
+        return dashed_image(192, 256, int(name[7:])), B7_SMALL, 2
+    cases = {
+        "dashed_odd": lambda: (dashed_image(193, 257, 0), B7_SMALL, 2),
+        "dashed_levels1": lambda: (dashed_image(97, 130, 1), B7_SMALL, 1),
+        "integer_levels0": lambda: (np.round(dashed_image(48, 64, 2)),
+                                    B7_SMALL, 0),
+        "float_levels0": lambda: (dashed_image(48, 64, 2), B7_SMALL, 0),
+        "constant": lambda: (np.full((96, 128), 128, np.float32), B7_SMALL,
+                             2),
+        "noise": lambda: (np.random.default_rng(7).uniform(
+            0, 255, (96, 128)).astype(np.float32), B7_SMALL, 2),
+        "dashed_2k": lambda: (dashed_image(1344, 2048, 0, dash=170, gap=40,
+                                           width=10), {}, 2),
+        "dashed_dino": lambda: (dashed_image(480, 640, 0, gap=24), mid, 2)}
+    return cases[name]()
+
+
+def b7_mismatch(got, want) -> dict:
+    """Elements that differ, field by field of two WeakTextures (floats
+    compared on their int64 views; a shape or dtype that differs is
+    named)."""
+    import numpy as np
+    out = {}
+    for f in B7_FIELDS:
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if a.shape != b.shape or a.dtype != b.dtype:
+            out[f] = f"{a.dtype}{a.shape} against {b.dtype}{b.shape}"
+            continue
+        if a.dtype.kind == "f":
+            a, b = a.view(np.int64), b.view(np.int64)
+        out[f] = int((a != b).sum())
+    return out
+
+
+def check_b7(gray, params, pyr_levels: int, dev, name: str) -> dict:
+    """B7 against the plain version on one image: the mismatches, the
+    region count, the segments each drew and B7's launches against its
+    plan."""
+    from tsar_mvs_tpu_torch.models import weak_texture as wt
+    from tsar_mvs_tpu_torch.ops import cuda_weak_texture as b7
+    trace.clear("weak_texture.segments", "launches.b7",
+                "weak_texture.plain_calls")
+    want = wt.detect_weak_texture(gray, params, pyr_levels)
+    plain_segments = trace.counter("weak_texture.segments")
+    trace.clear("weak_texture.segments")
+    got = wt.detect_weak_texture(gray, params, pyr_levels, device=dev)
+    planned = b7.plan(*gray.shape, pyr_levels, params.weak_text_num)
+    return {"case": name, "shape": list(gray.shape), "levels": pyr_levels,
+            "regions": int(want.num_regions),
+            "trueweak": int((want.text == -1).sum()),
+            "segments": [plain_segments,
+                         trace.counter("weak_texture.segments")],
+            "launches": [trace.counter("launches.b7"),
+                         len(planned.kernels)],
+            "plain_calls": trace.counter("weak_texture.plain_calls"),
+            "mismatch": b7_mismatch(got, want)}
+
+
+def b7_ok(row: dict) -> bool:
+    return (all(v == 0 for v in row["mismatch"].values())
+            and row["segments"][0] == row["segments"][1]
+            and row["launches"][0] == row["launches"][1]
+            and row["plain_calls"] == 1)
+
+
+def b7_bound(H: int, W: int, gray_bytes: int = 4) -> dict:
+    """B7's least time: the image read once and the full-size labels
+    written once at 3.35 TB/s (its other traffic is on the quarter-size
+    level and its operations are few)."""
+    nbytes = H * W * (gray_bytes + 4)
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def time_b7(gray, params, dev, repeats: int = 20,
+            plain_repeats: int = 3) -> dict:
+    """The weak-texture stage at one image: B7's wall milliseconds a call
+    (upload to arrays, median of `repeats`), its kernels' device
+    milliseconds and its device operations (kernels, copies, fills) a
+    call (profiler), the plain version's wall milliseconds (median of
+    `plain_repeats`) and the bound."""
+    import statistics
+    import torch
+    from tsar_mvs_tpu_torch.models import weak_texture as wt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        return wt.detect_weak_texture(gray, params, device=dev)
+
+    def wall(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    call()
+    ms = wall(call, repeats)
+    plain_ms = wall(lambda: wt.detect_weak_texture(gray, params),
+                    plain_repeats)
+    device_ms, ops, parts = None, None, None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        dev_ev = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if dev_ev:
+            device_ms = sum(e.time_range.elapsed_us() for e in dev_ev
+                            if "weak_" in e.name) / 1e3
+            ops = len(dev_ev)
+            parts = {}
+            for e in dev_ev:
+                m = re.search(r"weak_(\w+?)_kernel", e.name)
+                name = m.group(1) if m else e.name[:24]
+                parts[name] = parts.get(name, 0.0) + \
+                    e.time_range.elapsed_us()
+            break
+    return {"shape": list(gray.shape), "ms": ms, "device_ms": device_ms,
+            "device_ops": ops, "device_us_by_op": parts,
+            "plain_ms": plain_ms,
+            **b7_bound(*gray.shape, gray.dtype.itemsize)}
 
 
 def main(argv: list[str] | None = None) -> int:

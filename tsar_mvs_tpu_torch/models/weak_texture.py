@@ -6,9 +6,11 @@ component labeling of the non-edge mask, Hough-line splitting of big
 regions along straight region-boundary lines, relabeling, and the
 bounding-box "trueweak" filter. Constants from main.cpp:59-64.
 
-Like the reference this is a host-side stage (it runs once per view on a
-quarter-scale image and feeds per-region metadata to the device kernels).
-numpy + scipy.ndimage replace the hand-rolled union-find; labels are
+On the host (a CPU device) this is the reference's host stage in numpy
+and scipy.ndimage, the plain version; on a CUDA device kernel B7
+(``ops/cuda_weak_texture.py``, ``csrc/weak_texture.cu``) computes the
+same ``WeakTexture`` to the bit. numpy + scipy.ndimage replace the
+hand-rolled union-find; labels are
 renumbered in raster first-encounter order to match Connect()'s numbering
 (main.cpp:242-363). The reference's probabilistic HoughLinesP is replaced
 by a deterministic accumulator-peak extractor with the same
@@ -24,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 from scipy import ndimage
 
 from tsar_mvs_tpu_torch import trace
@@ -197,10 +200,21 @@ class WeakTexture:
 
 
 def detect_weak_texture(gray: np.ndarray, params: AlgorithmParams,
-                        pyr_levels: int = 2) -> WeakTexture:
+                        pyr_levels: int = 2, device=None) -> WeakTexture:
     """Full texture() pipeline (main.cpp:365-596) on a full-res grayscale
     image in [0, 255]. pyr_levels=2 reproduces the reference's quarter
-    scale (main.cpp:375-379); smaller images may use fewer levels."""
+    scale (main.cpp:375-379); smaller images may use fewer levels.
+    `device` None or a CPU device runs the plain version (numpy, scipy,
+    the trace counter ``weak_texture.plain_calls``), a CUDA device kernel
+    B7, which uploads `gray` and reads the result back. The trace counter
+    ``weak_texture.segments`` counts the Hough segments drawn."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        return _detect_b7(gray, params, pyr_levels, device)
+    if device.type != "cpu":
+        raise ValueError(f"detect_weak_texture: no kernel for a "
+                         f"{device.type} device")
+    trace.count("weak_texture.plain_calls")
     H, W = gray.shape
     scale = 2 ** pyr_levels
     with trace.span("weak_texture.edges"):
@@ -216,9 +230,11 @@ def detect_weak_texture(gray: np.ndarray, params: AlgorithmParams,
     with trace.span("weak_texture.hough"):
         for region in weak0:
             boundary = region_boundary(labels0, region)
-            for seg in hough_segments(boundary, params.hough_thr,
-                                      params.min_line_length,
-                                      params.max_line_gap):
+            segs = hough_segments(boundary, params.hough_thr,
+                                  params.min_line_length,
+                                  params.max_line_gap)
+            trace.count("weak_texture.segments", n=len(segs))
+            for seg in segs:
                 draw_segment(edges, seg, 255)
 
         # Border cleanup (main.cpp:444-456): outermost row/col copies its
@@ -273,3 +289,23 @@ def detect_weak_texture(gray: np.ndarray, params: AlgorithmParams,
                        labels_small=labels.astype(np.int32), text=text,
                        cenx=cenx, ceny=ceny, size=size,
                        counts=counts.astype(np.int64))
+
+
+def _detect_b7(gray: np.ndarray, params: AlgorithmParams, pyr_levels: int,
+               device: torch.device) -> WeakTexture:
+    """Kernel B7's stages inside the plain version's part spans."""
+    from tsar_mvs_tpu_torch.ops import cuda_weak_texture as b7
+    with trace.span("weak_texture.edges"):
+        run = b7.Run(b7.upload(gray, device), params.rob_thr,
+                     params.weak_text_num, params.hough_thr,
+                     params.min_line_length, params.max_line_gap,
+                     params.size_rat, pyr_levels)
+        run.edges()
+    with trace.span("weak_texture.label"):
+        run.label(1)
+    with trace.span("weak_texture.hough"):
+        run.hough()
+    with trace.span("weak_texture.label"):
+        run.label(2)
+    with trace.span("weak_texture.regions"):
+        return WeakTexture(*run.regions())

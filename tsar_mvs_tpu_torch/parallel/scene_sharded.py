@@ -200,10 +200,10 @@ def process_scene_sharded(scene, params: AlgorithmParams | None = None,
                                      cams, params, iters=params.wmf_iters)
     mark("C")
 
-    # D (host): weak texture, region RANSAC and the border check.
+    # D: weak texture (B7 on a card), region RANSAC and the border check.
     weaks, planes = [], []
     for i, r in enumerate(refs):
-        weak = wt.detect_weak_texture(scene.images[r], params)
+        weak = wt.detect_weak_texture(scene.images[r], params, device=dev)
         gen = torch.Generator(device=dev).manual_seed(
             pm.fold_in(seed, 999 + r))
         pr = tsar.fit_region_planes(gen, weak, disps[i],

@@ -344,7 +344,7 @@ def _process_view(scene, ref_idx, params, generator, out_dir, pm_iterations,
         name = scene.names[ref_idx]
         gray = scene.images[ref_idx]
     with trace.stage("weak_texture", timer):
-        weak = wt.detect_weak_texture(gray, params)
+        weak = wt.detect_weak_texture(gray, params, device=device)
     with trace.stage("slic", timer):
         with trace.span("slic.superpixels"):
             slic_labels, slic_res = run_slic_stage(gray, params, device)

@@ -8,8 +8,11 @@ calls, B5 once a view however many CUDA launches it makes),
 ``launches_by_shape.b1`` ... ``launches_by_shape.b6``,
 ``launches_by_instance.b3``, ``halfpass.plain_calls`` (the plain
 half-pass's calls: 0 on the card), ``ransac.views_without_regions``
-(views that fit no region plane, so that B5 did not launch) and, while
-spans record, ``host_syncs``.
+(views that fit no region plane, so that B5 did not launch),
+``launches.b7`` (B7's CUDA launches, every one counted),
+``weak_texture.plain_calls`` (the plain weak-texture detection's calls: 0
+on the card), ``weak_texture.segments`` (Hough segments drawn, on either
+path) and, while spans record, ``host_syncs``.
 
 Spans record only while tracing is on: between ``on()`` and ``off()``, or
 while ``torch.profiler`` records, so that a profiled window carries the
