@@ -443,8 +443,13 @@ def main(argv=None) -> int:
         print(f"benchmark: the cell needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace))
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmark import scene_job, traffic
+    drive = (scene_job.run_cell
+             if traffic.load(cell["traffic"]).get("driver") == "scene"
+             else run_cell)
+    result = drive(args.workload, args.seed, args.seconds, bool(args.trace))
     found = result.pop("forbidden_modules")
     result.pop("measured")
     if found:

@@ -4,10 +4,11 @@ The port records them in memory (``tsar_mvs_tpu_torch/trace.py``) while
 torch.profiler records, so the window of a ``--trace 1`` run carries them:
 each span's name, parent, view, host start and end on the profiler's
 clock and its seconds on the device's timeline, and the counters. The
-readers take them in three summaries (`summary`): ``program_spans``
+readers take them in four summaries (`summary`): ``program_spans``
 ({span name: [seconds, self seconds]} summed over the window),
-``program_counters`` ({name: total}) and ``b5_calls`` (each B5 call's
-work, the attributes of its `ransac.fit` span). A checkout whose program
+``program_counters`` ({name: total}), ``b5_calls`` (each B5 call's
+work, the attributes of its `ransac.fit` span) and ``view_s`` (each
+`view` span's seconds on the host's clock, in order). A checkout whose program
 has no tracer gives nothing, and the readers then leave their metric out.
 """
 
@@ -24,7 +25,9 @@ def summary(collected: dict) -> dict:
     return {"program_spans": spans,
             "program_counters": dict(collected["counters"]),
             "b5_calls": [s["attrs"] for s in collected["spans"]
-                         if s["name"] == "ransac.fit"]}
+                         if s["name"] == "ransac.fit"],
+            "view_s": [(s["end_us"] - s["start_us"]) / 1e6
+                       for s in collected["spans"] if s["name"] == "view"]}
 
 
 def program(trace: dict) -> dict | None:

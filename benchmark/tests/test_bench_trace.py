@@ -88,6 +88,41 @@ def test_summary_of_collected_spans():
     assert s["b5_calls"] == [CALLS[0]]
 
 
+def test_view_span_p95_reads_the_view_spans():
+    """`view_s` holds each `view` span's host seconds in order, and
+    `view_span_p95_s` is their 95th percentile as `view_s_p95` takes it;
+    nothing where no view span ended."""
+    from benchmark.run import percentile
+    ends = [0.20, 0.25, 0.22, 0.40, 0.21]
+    got = {"spans": [{"name": "view", "seconds": 0.1, "self_s": 0.0,
+                      "attrs": {}, "start_us": 1e6 * k,
+                      "end_us": 1e6 * (k + e)}
+                     for k, e in enumerate(ends)]
+           + [{"name": "fill", "seconds": 0.1, "self_s": 0.1, "attrs": {},
+               "start_us": 0.0, "end_us": 9e6}],
+           "counters": {}}
+    s = spans.summary(got)
+    assert s["view_s"] == pytest.approx(ends)
+    reader = metrics.load("view_span_p95_s")
+    assert reader.read(_trace(**s)) == pytest.approx(percentile(ends, 95))
+    assert reader.read(_trace(view_s=[])) is None
+    assert reader.read(_trace()) is None
+
+
+def test_view_s_p95_is_per_layer_where_it_spreads():
+    """`view_s_p95` is an end-to-end metric of the 2K view cells; on dino,
+    whose untraced runs spread too widely for its bound, the same
+    percentile is read per layer from the program's `view` spans."""
+    e2e = {m["name"]: m for m in SPEC["end_to_end"]}
+    per_layer = {m["name"]: m for m in SPEC["per_layer"]}
+    assert e2e["view_s_p95"]["workloads"] == ["eth3d2k.images",
+                                              "eth3d2k.apd"]
+    m = per_layer["view_span_p95_s"]
+    assert m["workloads"] == ["middlebury-dino.images"]
+    assert (m["moves"], m["source"], m["unit"]) == (
+        "views_per_s", "program_span", "s")
+
+
 def _span(i, name, parent, a, b):
     return {"id": i, "name": name, "parent": parent, "start_us": a,
             "end_us": b}
@@ -119,12 +154,17 @@ def test_idle_gaps_merge_overlapping_operations():
 def test_new_metrics_are_declared_with_their_cells():
     per_layer = {m["name"]: m for m in SPEC["per_layer"]}
     cells = [w["name"] for w in SPEC["workloads"]]
+    # The view cells: `patchmatch.inputs` lies in `process_view` alone;
+    # the scene path opens phase D's spans (B5, the border check).
+    views = [w["name"] for w in SPEC["workloads"]
+             if w["traffic"] != "scene"]
     for name in NEW:
         assert per_layer[name]["moves"] == "views_per_s"
         assert (ROOT / "benchmark" / "metrics" / f"{name}.py").exists()
     assert per_layer["b5_roofline_pct"]["workloads"] == [
-        "eth3d2k.images", "eth3d2k.apd"]
-    for name in NEW[1:]:
+        "eth3d2k.images", "eth3d2k.apd", "eth3d2k.scene4"]
+    assert per_layer["inputs_s"]["workloads"] == views
+    for name in ("border_check_s", "host_syncs_per_view"):
         assert per_layer[name]["workloads"] == cells
 
 
