@@ -13,8 +13,9 @@ textures than the configuration's, one seed each. Prints one JSON line a
 reading: {"kind", "seed", "numbers", "per_view", "depth_acc2_pct",
 "view_s"}. ``PERF.md`` says which readings set each limit.
 
-Faults (`FAULTS`: the function of ``models/tsar`` each replaces, and the
-replacement), planted in the program for the readings only:
+Faults (`FAULTS`: the module of the program, the function of it that
+each replaces, and the replacement), planted in the program for the
+readings only:
 
 - ``fill_offset``: the fill writes its region planes' depth 5% long;
 - ``fill_skipped``: the fill returns the state unchanged;
@@ -22,10 +23,15 @@ replacement), planted in the program for the readings only:
 - ``normals_camera``: `finalize_stage` returns the normals in the
   reference camera's frame, not the world's;
 - ``refine_unchanged``: `tsar_refine` writes the plane field it was
-  given (a lifted prior, or PatchMatch's) unrefined.
+  given (a lifted prior, or PatchMatch's) unrefined;
+- ``color_sources_rotated`` (a colour cell): the sources' channels are
+  rotated (R <- G <- B) in the colour images that
+  ``models/patchmatch``'s `run_patchmatch_pyramid` is given; the
+  reference view's stay.
 """
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -75,11 +81,22 @@ def refine_unchanged(real):
     return planted
 
 
-FAULTS = {"fill_offset": ("fill_stage", fill_offset),
-          "fill_skipped": ("fill_stage", fill_skipped),
-          "depth_long": ("finalize_stage", depth_long),
-          "normals_camera": ("finalize_stage", normals_camera),
-          "refine_unchanged": ("tsar_refine", refine_unchanged)}
+def color_sources_rotated(real):
+    def planted(*a, imgs_color=None, **k):
+        if imgs_color is not None:
+            imgs_color = imgs_color.clone()
+            imgs_color[1:] = imgs_color[1:, [1, 2, 0]]
+        return real(*a, imgs_color=imgs_color, **k)
+    return planted
+
+
+FAULTS = {"fill_offset": ("tsar", "fill_stage", fill_offset),
+          "fill_skipped": ("tsar", "fill_stage", fill_skipped),
+          "depth_long": ("tsar", "finalize_stage", depth_long),
+          "normals_camera": ("tsar", "finalize_stage", normals_camera),
+          "refine_unchanged": ("tsar", "tsar_refine", refine_unchanged),
+          "color_sources_rotated": ("patchmatch", "run_patchmatch_pyramid",
+                                    color_sources_rotated)}
 
 
 def reading(kind: str, seed: int, res: dict) -> str:
@@ -108,7 +125,6 @@ def main(argv=None) -> int:
         return 2
     from benchmark import run
     from benchmark.reference import control
-    from tsar_mvs_tpu_torch.models import tsar
     _, _, config = run.load_cell(args.workload)
     views = config["images"]
 
@@ -125,14 +141,16 @@ def main(argv=None) -> int:
                           "numbers": r["numbers"],
                           "per_view": r["per_view"]}), flush=True)
     for name in args.fault:
-        target, plant = FAULTS[name]
-        real = getattr(tsar, target)
-        setattr(tsar, target, plant(real))
+        module, target, plant = FAULTS[name]
+        module = importlib.import_module(
+            f"tsar_mvs_tpu_torch.models.{module}")
+        real = getattr(module, target)
+        setattr(module, target, plant(real))
         try:
             for seed in args.fault_seeds:
                 print(reading(f"fault:{name}", seed, one(seed)), flush=True)
         finally:
-            setattr(tsar, target, real)
+            setattr(module, target, real)
     for t in args.textures:
         cfg = dict(config, scene=dict(config["scene"], texture_seed=t))
         seed = args.seeds[0] if args.seeds else 1

@@ -12,14 +12,18 @@ falls back to the CPU. A run:
 
 1. renders the cell's scene on the card (``benchmark/scene.py``; its
    texture from the configuration's `texture_seed`, so that every seed
-   gives the program the same images and the same work) and builds the
-   program's ``Scene`` in memory; a mix with a prior writes
-   ``APD/<name>/...`` for every view, its noise drawn from the seed;
+   gives the program the same images and the same work; in colour where
+   its `scene` says `"color": true`) and builds the program's ``Scene``
+   in memory, with the colour images beside the gray; a mix with a prior
+   writes ``APD/<name>/...`` for every view, its noise drawn from the
+   seed;
 2. warms up on one reference view that is not timed (the process's first
    pyramid, the first cuSOLVER/cuBLAS calls, the kernel library load);
    everything up to here is `setup_s`;
 3. drives ``pipeline.process_view`` on the mix's views in a closed loop
-   with one caller until ``--seconds`` have passed, each view with its own
+   with one caller until ``--seconds`` have passed and every view of the
+   scene has been sent at least once (the check compares every view, and
+   a scene of many views can outlast the window), each view with its own
    generator seeded from the seed and its place in the loop, its maps
    written under ``TMPDIR``; with ``--trace 1`` under ``torch.profiler``
    and with a `timer` at the program's stage marks that records a CUDA
@@ -220,8 +224,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     """One run of `workload`; returns the result line's dict. `config`
     and `limits` replace the cell's files (tests run a small copy on the
     CPU), `t_start` is when set-up began (default: the process start);
-    the window runs on past `seconds` until `min_views` views have been
-    sent (`calibrate.py` reads one rotation a seed)."""
+    the window runs on past `seconds` until every view of the scene, and
+    at least `min_views` views, have been sent (`calibrate.py` reads one
+    rotation a seed)."""
     import torch
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
@@ -260,14 +265,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             H, W, V, geo["texture_seed"], dev,
             weak_fraction=geo["weak_fraction"],
             arc_radius=geo["arc_radius"], arc_span_deg=geo["arc_span_deg"],
-            pair_top_k=config["pair_top_k"])
+            pair_top_k=config["pair_top_k"], color=geo.get("color", False))
         sync()
         render_s = time.perf_counter() - t0
         names = [f"{i:08d}" for i in range(V)]
+        # A colour scene's images as `Scene.load_color` would read them,
+        # on the host: -color_processing then finds them in memory.
         scene = pipeline.Scene(
             root=work / "scene", names=names, images=sd.images.cpu().numpy(),
             P=sd.P, depth_min=sd.depth_min, depth_max=sd.depth_max,
-            pair=scene_io.PairFile(neighbors=sd.pair))
+            pair=scene_io.PairFile(neighbors=sd.pair),
+            images_color=(None if sd.images_color is None
+                          else sd.images_color.cpu().numpy()))
         if mix["prior"] is not None:
             traffic.write_priors(mix, sd, names, scene.root, seed)
         truth = SimpleNamespace(
@@ -310,6 +319,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         times, failed, index = [], 0, 0
         last_done: dict[int, Path] = {}
         sync()
+        min_views = max(min_views, V)
         w0 = time.perf_counter()
         try:
             while (time.perf_counter() - w0 < seconds

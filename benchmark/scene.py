@@ -11,6 +11,15 @@ a fraction of a second on the card instead of tens of seconds in numpy.
 The renderer also gives the exact ground truth the output check compares
 with: camera-frame depth (inf where no surface is hit), world normals
 and the textureless mask, all kept in float64 on the device.
+
+A colour scene (`make_scene(..., color=True)`) traces the rays once and
+evaluates the value noise three times, from the texture seed, seed + 1
+and seed + 2 (`texture`: the luma and two chroma differences, so that the
+channels differ and correlate as a photo's do); the textureless patch
+keeps its flat albedo in every channel. Its gray images are the BT.601
+luma 0.299 R + 0.587 G + 0.114 B, as OpenCV's grayscale read of the same
+colour file gives them, which is the gray scene's texture to rounding;
+the truth is the gray scene's.
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ class SceneData:
     depth_min: float
     depth_max: float
     pair: dict[int, list[tuple[int, float]]]   # pair.txt's ranking
+    # (V, 3, H, W) float32 RGB in [0, 255], device; None for a gray scene
+    images_color: torch.Tensor | None = None
 
 
 def look_at(C: np.ndarray, target: np.ndarray,
@@ -110,11 +121,38 @@ def value_noise(X: torch.Tensor, seed: int, octaves: int,
     return out / amp_total
 
 
+# The colour texture's chroma: Cb and Cr span +-CHROMA / 2 of full scale
+# around gray, so that R, G and B stay inside [0, 1] where the luma does.
+CHROMA = 0.2
+
+
+def texture(X: torch.Tensor, seed: int, octaves: int,
+            channels: int) -> torch.Tensor:
+    """Albedo in [0, 1] of world points X (..., 3), (channels, ...). Gray:
+    the value noise of `seed`. Colour: that noise is the luma Y, the value
+    noises of seed + 1 and seed + 2 the chroma Cb and Cr, and R, G, B
+    follow by BT.601's inverse, G from the luma itself, so that 0.299 R +
+    0.587 G + 0.114 B is Y to rounding: the colour scene's luma is the
+    gray scene's texture, and its channels correlate as a photo's do."""
+    def noise(s):
+        return value_noise(X, seed=s, octaves=octaves, persistence=0.7)
+    luma = 0.15 + 0.7 * noise(seed)
+    if channels == 1:
+        return luma[None]
+    cb = CHROMA * (noise(seed + 1) - 0.5)
+    cr = CHROMA * (noise(seed + 2) - 0.5)
+    red = luma + 1.402 * cr
+    blue = luma + 1.772 * cb
+    green = (luma - 0.299 * red - 0.114 * blue) / 0.587
+    return torch.stack([red, green, blue])
+
+
 def render_view(R: np.ndarray, t: np.ndarray, K: np.ndarray,
                 rects: list[Rect], height: int, width: int, seed: int,
-                device) -> tuple[torch.Tensor, ...]:
-    """Ray-cast one view: (image, camera-frame depth with inf for a miss,
-    world normals, textureless mask)."""
+                device, channels: int = 1) -> tuple[torch.Tensor, ...]:
+    """Ray-cast one view: (image (channels, H, W), camera-frame depth with
+    inf for a miss, world normals, textureless mask); `texture` gives the
+    albedo of each channel."""
     f = K[0, 0]
     yy, xx = torch.meshgrid(torch.arange(height, dtype=F64, device=device),
                             torch.arange(width, dtype=F64, device=device),
@@ -125,7 +163,8 @@ def render_view(R: np.ndarray, t: np.ndarray, K: np.ndarray,
                         for i in range(3)], -1)
     Ct = torch.tensor(C, dtype=F64, device=device)
     best_s = torch.full((height, width), torch.inf, dtype=F64, device=device)
-    tex_val = torch.zeros((height, width), dtype=F64, device=device)
+    tex_val = torch.zeros((channels, height, width), dtype=F64,
+                          device=device)
     hit_n = torch.zeros((height, width, 3), dtype=F64, device=device)
     hit_weak = torch.zeros((height, width), dtype=torch.bool, device=device)
     # Resolution-matched texture: the finest octave has a 2-4 px
@@ -144,8 +183,7 @@ def render_view(R: np.ndarray, t: np.ndarray, K: np.ndarray,
         w_ = _dot(rel, rect.ev) / float(rect.ev @ rect.ev)
         valid = (torch.isfinite(s) & (s > 0) & (u >= 0) & (u <= 1)
                  & (w_ >= 0) & (w_ <= 1) & (s < best_s))
-        val = 0.15 + 0.7 * value_noise(X, seed=seed, octaves=octs,
-                                       persistence=0.7)
+        val = texture(X, seed, octs, channels)
         in_patch = torch.zeros_like(valid)
         if rect.flat_patch is not None:
             u0, u1, v0, v1 = rect.flat_patch
@@ -215,14 +253,23 @@ def pair_ranking(R: np.ndarray, t: np.ndarray,
 
 def make_scene(height: int, width: int, num_views: int, seed: int,
                device, weak_fraction: float = 0.25, arc_radius: float = 4.0,
-               arc_span_deg: float = 40.0, pair_top_k: int = 10
-               ) -> SceneData:
+               arc_span_deg: float = 40.0, pair_top_k: int = 10,
+               color: bool = False) -> SceneData:
     K, Rs, ts, Ps = cameras(height, width, num_views, arc_radius,
                             arc_span_deg)
     rects = rectangles(weak_fraction)
-    views = [render_view(Rs[v], ts[v], K, rects, height, width, seed, device)
+    views = [render_view(Rs[v], ts[v], K, rects, height, width, seed, device,
+                         channels=3 if color else 1)
              for v in range(num_views)]
-    images = torch.stack([v[0] for v in views]).to(torch.float32)
+    rgb = torch.stack([v[0] for v in views])
+    if color:
+        images_color = rgb.to(torch.float32)
+        images = (0.299 * rgb[:, 0] + 0.587 * rgb[:, 1]
+                  + 0.114 * rgb[:, 2]).to(torch.float32)
+    else:
+        images_color = None
+        images = rgb[:, 0].to(torch.float32)
+    del rgb
     depth = torch.stack([v[1] for v in views])
     # The depth range from the float32 depths, as the program's
     # make_scene takes it.
@@ -235,4 +282,4 @@ def make_scene(height: int, width: int, num_views: int, seed: int,
         normal_world=torch.stack([v[2] for v in views]),
         weak_mask=torch.stack([v[3] for v in views]), K=K, R=Rs, t=ts, P=Ps,
         depth_min=max(1e-3, dmin - margin), depth_max=dmax + margin,
-        pair=pair_ranking(Rs, ts, pair_top_k))
+        pair=pair_ranking(Rs, ts, pair_top_k), images_color=images_color)

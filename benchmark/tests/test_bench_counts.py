@@ -17,10 +17,12 @@ import torch
 
 from benchmark import metrics
 from benchmark import scene as bench_scene
+from benchmark.counts import b3 as frozen_b3
 from benchmark.counts import kernels as counts
 from tsar_mvs_tpu_torch import kernel_times as kt
 from tsar_mvs_tpu_torch import pipeline
 from tsar_mvs_tpu_torch.config import AlgorithmParams
+from tsar_mvs_tpu_torch.models import patchmatch
 from tsar_mvs_tpu_torch.ops import ncc, wmf
 from tsar_mvs_tpu_torch.utils import scene_io
 
@@ -45,7 +47,7 @@ def test_frozen_plan_is_the_programs(monkeypatch, name):
     sd = bench_scene.make_scene(
         H, W, cfg["images"], 0, "cpu", weak_fraction=geo["weak_fraction"],
         arc_radius=geo["arc_radius"], arc_span_deg=geo["arc_span_deg"],
-        pair_top_k=cfg["pair_top_k"])
+        pair_top_k=cfg["pair_top_k"], color=geo.get("color", False))
     scene = pipeline.Scene(
         root=None, names=[f"{i:08d}" for i in range(cfg["images"])],
         images=sd.images.numpy(), P=sd.P, depth_min=sd.depth_min,
@@ -62,8 +64,16 @@ def test_frozen_plan_is_the_programs(monkeypatch, name):
     assert frozen["init"] == [p["init"] for p in plan]
     assert frozen["sources"] == plan[0]["builds"] == cfg["sources_per_view"]
     assert frozen["window_offsets"] == len(ncc.window_offsets(params))
-    assert [list(c) for c in pipeline.scene_plane_counts(
-        scene, params, levels, frozen["sources"])] == frozen["planes"]
+    counts_ = pipeline.scene_plane_counts(scene, params, levels,
+                                          frozen["sources"])
+    if "planes" in frozen:
+        assert [list(c) for c in counts_] == frozen["planes"]
+    else:  # the direct sampler: no s-volume, so no plane counts
+        assert counts_ == [None] * len(levels)
+        assert patchmatch.resolve_ncc_impl(params) == "direct"
+    if "channels" in frozen:
+        assert frozen["channels"] == (3 if params.color_processing else 1)
+        assert frozen["n_best"] == params.n_best
     passes = ([wmf.pass_schedule("mark", i) for i in range(params.wmf_iters)]
               + [wmf.pass_schedule("fill", i)
                  for i in range(params.wmf_final_iters)])
@@ -74,8 +84,12 @@ def test_frozen_plan_is_the_programs(monkeypatch, name):
         kt.launch_sequence(plan))
     assert counts.b6_least_seconds(frozen, cfg["resolution"])[1] == \
         kt.b6_launches(plan)
-    assert counts.b2_least_seconds(frozen, cfg["resolution"])[1] == sum(
-        p["builds"] for p in plan)
+    if "planes" in frozen:
+        assert counts.b2_least_seconds(frozen, cfg["resolution"])[1] == \
+            sum(p["builds"] for p in plan)
+    if "channels" in frozen:
+        assert frozen_b3.b3_least_seconds(frozen, cfg["resolution"])[1] \
+            == len(kt.launch_sequence(plan))
 
 
 @pytest.mark.parametrize("H,W", SHAPES)
@@ -117,6 +131,87 @@ def test_b4_counts(H, W, O):
 def test_b6_counts(H, W, kernel, banks):
     b = kt.b6_bound(kernel, H, W, H, W // 2, banks, 0)
     assert counts.b6_counts(kernel, H, W, banks) == (b["bytes"], b["flops"])
+
+
+def _b3_bound(monkeypatch, H, W, C, CH, parity, V=7):
+    """kernel_times' B3 bound of one evaluation of C candidates on an H x
+    W level (the packed half grid at a parity, else the dense grid)
+    against V views in CH channels, its source reads left out."""
+    from types import SimpleNamespace
+    monkeypatch.setattr(kt, "source_bytes_touched", lambda *a: 0)
+    lv = {"params": AlgorithmParams()}
+    views = SimpleNamespace(packed=[None] * V, channels=CH)
+    s0 = torch.zeros((C, H, W if parity is None else W // 2))
+    return kt.b3_bound(lv, views, s0, s0, s0, parity)
+
+
+@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("C", [1, 4, 8])
+@pytest.mark.parametrize("CH", [1, 3])
+def test_b3_counts(monkeypatch, H, W, C, CH):
+    """B3 at a packed grid: kernel_times' operations, and its bytes with
+    the source reads left out (the frozen count's lower bound)."""
+    b = _b3_bound(monkeypatch, H, W, C, CH, 0)
+    O = len(ncc.window_offsets(AlgorithmParams()))
+    px = H * (W // 2)
+    assert frozen_b3.b3_counts(px, C, O, 7, CH) == (b["bytes"], b["flops"])
+    assert frozen_b3.b3_flops(px, O, 7, C, CH) == kt.b3_flops(px, O, 7, C,
+                                                              CH)
+
+
+def test_b3_least_seconds_at_one_levels_shapes(monkeypatch):
+    """One level of the colour plan (1344x2048: 3 iterations, 4 banks, 4
+    refine scales, its 10 sources): the frozen least seconds are
+    kernel_times' bound summed over the level's launches, each shape's
+    bound_ms times its launches."""
+    plan = dict(CONFIGS["eth3d-2k-color3"]["plan"], levels=[1],
+                iterations=[3], banks=[4], refine_scales=[4], init=[1])
+    least, n = frozen_b3.b3_least_seconds(plan, [2048, 1344])
+    halves = 2 * 3
+    shapes = [(None, 1, 1), (0, 4, halves), (0, 1, halves * 4)]
+    want = sum(k * _b3_bound(monkeypatch, 1344, 2048, C, 3, par,
+                             V=plan["sources"])["bound_ms"]
+               for par, C, k in shapes) / 1e3
+    assert n == 1 + halves * 5
+    assert least == pytest.approx(want, rel=1e-12)
+
+
+def _b3_trace(config: str, kernels: dict, views: int) -> dict:
+    return {"views": views, "kernels": kernels, "config": CONFIGS[config]}
+
+
+B3_NAME = ("void (anonymous namespace)::direct_multiview_kernel<{}, {}, {}, "
+           "true>((anonymous namespace)::Args, (anonymous namespace)::Views)")
+
+
+def test_b3_reader_reads_the_plans_instance_only():
+    """157 launches a view of the colour plan's instances (CH 3, NB 4 for
+    n_best 3 over 10 views) give a share; the same launches of a gray or
+    an n_best 1 instance, or too few, give nothing, as does a plan of
+    the s-volume path."""
+    reader = metrics.load("b3_roofline_pct")
+    views = 3
+    least, n = frozen_b3.b3_least_seconds(
+        CONFIGS["eth3d-2k-color3"]["plan"],
+        CONFIGS["eth3d-2k-color3"]["resolution"])
+    assert n == 157
+    assert frozen_b3.instance(CONFIGS["eth3d-2k-color3"]["plan"]) == (3, 4)
+    secs = 4 * least * views
+
+    def split(ch, nb):
+        return {B3_NAME.format(8, ch, nb): [secs / 4, views],
+                B3_NAME.format(4, ch, nb): [secs / 4, 60 * views],
+                B3_NAME.format(1, ch, nb): [secs / 2, 96 * views],
+                "halfpass_prop_select_kernel": [1.0, 10]}
+    got = reader.read(_b3_trace("eth3d-2k-color3", split(3, 4), views))
+    assert got == pytest.approx(25.0)
+    for ch, nb in ((1, 4), (3, 1), (1, 1)):
+        assert reader.read(_b3_trace("eth3d-2k-color3", split(ch, nb),
+                                     views)) is None
+    short = split(3, 4)
+    short[B3_NAME.format(8, 3, 4)][1] -= 1
+    assert reader.read(_b3_trace("eth3d-2k-color3", short, views)) is None
+    assert reader.read(_b3_trace("eth3d-2k", split(3, 4), views)) is None
 
 
 SAMPLES = sorted((Path(__file__).parent / "data").glob("trace_*.json"))

@@ -17,14 +17,21 @@ weak_bad2_mean 0.18). Faults, each planted in the program (the planting
 functions of ``benchmark/calibrate.py``, which reads them on the card):
 
 - a step that returns its state unchanged: every PatchMatch step (the
-  images mix), or the refinement (the APD mix: the written depth is the
-  lifted prior's);
+  images mix, gray and colour), or the refinement (the APD mix: the
+  written depth is the lifted prior's);
 - half of the batch left out: `process_view` returns at once for every
   other reference view;
 - an answer altered where it is produced: `finalize_stage` returns the
   depth 5% long, or the normals in the camera's frame; the fill writes its region planes 5% long (the APD mix:
   at this size only its views fit a region plane that the border check
-  keeps).
+  keeps); the colour cell's sources' channels rotated before the
+  pyramid (``calibrate.color_sources_rotated``).
+
+The colour cell's copy runs the direct sampler with n_best 3 on the
+colour scene at the images mix's size, with the images mix's limits (its
+sound runs read tex_bad2_mean 0.069-0.072, _max 0.079-0.085, median
+error 0.0011-0.0015, best view's 25th percentile 0.00029-0.00034,
+normals 4.6-7.0 degrees).
 
 The exchange between chips does not exist in these one-card cells.
 """
@@ -45,13 +52,22 @@ SMALL = {"eth3d2k.images": {"resolution": [128, 96], "images": 3,
                                           "wmf_final_iters": 2}},
          "eth3d2k.apd": {"resolution": [128, 96], "images": 3,
                          "sources_per_view": 2,
-                         "algorithm": {"weak_text_num": 100}}}
+                         "algorithm": {"weak_text_num": 100}},
+         "eth3d2k.color3": {"resolution": [128, 96], "images": 3,
+                            "sources_per_view": 2,
+                            "algorithm": {"color_processing": True,
+                                          "n_best": 3, "iterations": 2,
+                                          "wmf_iters": 2,
+                                          "wmf_final_iters": 2}}}
 LIMITS = {"eth3d2k.images": {"tex_bad2_mean": 0.2, "tex_bad2_max": 0.2,
                              "tex_err_med": 0.003, "tex_err_p25_min": 0.0012,
                              "tex_nrm_med_deg": 10.0, "views_missing": 0},
           "eth3d2k.apd": {"tex_bad2_mean": 0.03, "tex_bad2_max": 0.06,
                           "tex_err_med": 0.02, "tex_nrm_med_deg": 10.0,
-                          "weak_bad2_mean": 0.06, "views_missing": 0}}
+                          "weak_bad2_mean": 0.06, "views_missing": 0},
+          "eth3d2k.color3": {"tex_bad2_mean": 0.2, "tex_bad2_max": 0.2,
+                             "tex_err_med": 0.003, "tex_err_p25_min": 0.0012,
+                             "tex_nrm_med_deg": 10.0, "views_missing": 0}}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,6 +108,26 @@ def test_patchmatch_step_unchanged(monkeypatch):
     assert not res["correct"], res["check"]
 
 
+def test_color_patchmatch_step_unchanged(monkeypatch):
+    monkeypatch.setattr(pm, "make_patchmatch_step",
+                        lambda *a, **k: (lambda state, generator: state))
+    res = small_run("eth3d2k.color3")
+    assert not res["correct"], res["check"]
+
+
+def test_color_sources_rotated(monkeypatch):
+    """The sources' channels rotated (R <- G <- B) before the pyramid: the
+    colour cost matches each reference channel against another channel
+    (tex_bad2_mean 0.26-0.28 and median error 0.008-0.010 on three seeds
+    at this size, where sound runs read 0.069-0.072 and 0.0011-0.0015)."""
+    monkeypatch.setattr(pm, "run_patchmatch_pyramid",
+                        calibrate.color_sources_rotated(
+                            pm.run_patchmatch_pyramid))
+    res = small_run("eth3d2k.color3")
+    assert not res["correct"], res["check"]
+    assert res["check"]["tex_bad2_mean"]["value"] > 0.2
+
+
 def test_refinement_unchanged(monkeypatch):
     monkeypatch.setattr(tsar, "tsar_refine",
                         calibrate.refine_unchanged(tsar.tsar_refine))
@@ -124,7 +160,7 @@ def test_half_the_views_left_out(monkeypatch, workload):
 @pytest.mark.parametrize("fault", ["depth_long", "normals_camera"])
 @pytest.mark.parametrize("workload", sorted(LIMITS))
 def test_depth_altered_where_produced(monkeypatch, workload, fault):
-    target, plant = calibrate.FAULTS[fault]
+    _, target, plant = calibrate.FAULTS[fault]
     monkeypatch.setattr(tsar, target, plant(getattr(tsar, target)))
     res = small_run(workload)
     assert not res["correct"], res["check"]

@@ -110,15 +110,16 @@ def test_view_span_p95_reads_the_view_spans():
 
 
 def test_view_s_p95_is_per_layer_where_it_spreads():
-    """`view_s_p95` is an end-to-end metric of the 2K view cells; on dino,
-    whose untraced runs spread too widely for its bound, the same
-    percentile is read per layer from the program's `view` spans."""
+    """`view_s_p95` is an end-to-end metric of the 2K gray view cells; on
+    dino, whose untraced runs spread too widely for its bound, and on the
+    colour cell, the same percentile is read per layer from the program's
+    `view` spans."""
     e2e = {m["name"]: m for m in SPEC["end_to_end"]}
     per_layer = {m["name"]: m for m in SPEC["per_layer"]}
     assert e2e["view_s_p95"]["workloads"] == ["eth3d2k.images",
                                               "eth3d2k.apd"]
     m = per_layer["view_span_p95_s"]
-    assert m["workloads"] == ["middlebury-dino.images"]
+    assert m["workloads"] == ["middlebury-dino.images", "eth3d2k.color3"]
     assert (m["moves"], m["source"], m["unit"]) == (
         "views_per_s", "program_span", "s")
 
@@ -162,7 +163,7 @@ def test_new_metrics_are_declared_with_their_cells():
         assert per_layer[name]["moves"] == "views_per_s"
         assert (ROOT / "benchmark" / "metrics" / f"{name}.py").exists()
     assert per_layer["b5_roofline_pct"]["workloads"] == [
-        "eth3d2k.images", "eth3d2k.apd", "eth3d2k.scene4"]
+        "eth3d2k.images", "eth3d2k.apd", "eth3d2k.scene4", "eth3d2k.color3"]
     assert per_layer["inputs_s"]["workloads"] == views
     for name in ("border_check_s", "host_syncs_per_view"):
         assert per_layer[name]["workloads"] == cells
